@@ -1,28 +1,50 @@
-"""Drive the PyTorch/CUDA port's main path once on one GPU.
+"""Drive the PyTorch/CUDA port's paths once on one GPU.
 
-    python3 chip_smoke.py            # the full run: 1M x 128d corpus
-    python3 chip_smoke.py --n 200000 # a shorter run on a smaller corpus
+    python3 chip_smoke.py              # both paths at 1M
+    python3 chip_smoke.py --n 50000    # a shorter rehearsal
 
 Phases, each printing one JSON line:
 
 1. environment: torch / CUDA / nvcc versions and the card's name and power
-   limit (``nvidia-smi``), which it also prints as ``nvidia-smi`` gives them,
-   on a line of their own; exits non-zero without a CUDA device;
-2. kernel build: compiles ``jvector_tpu_torch/csrc/*.cu`` with nvcc;
-3. kernel check: K1 (packed adjacency) and K2 (fused code table) against
-   their plain PyTorch twins on the card at the main-path shapes (bit-exact,
-   ``torch.equal``), with the median time of 20 runs of each from CUDA
-   events;
-4. main path: ``build_graph`` of the synthetic corpus at
+   limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them; exits
+   non-zero without a CUDA device;
+2. kernel build: compiles ``jvector_tpu_torch/csrc/*.cu``, one nvcc per
+   source, all started together;
+3. kernel check: K1 (packed adjacency) and K2 (fused SQ4 code table)
+   against their plain PyTorch twins at the 1M build shapes (bit-exact,
+   ``torch.equal``), and K5 (PQ ADC) against its twin at the build, serve,
+   centroid-scan and an unaligned shape (``torch.allclose(rtol=1e-5,
+   atol=1e-4)``: only the order of the float32 sum differs); each with the
+   median time of 20 runs from CUDA events, beside its bound (bytes over
+   3.35 TB/s) and, for K5, the gather + sum PyTorch computes it with;
+4. SQ4 path (``--n``, PR 1's main path): ``build_graph`` at
    ``GraphConfig(max_degree=32, ef_construction=100)``, SQ4
    compute/encode/provider_for_graph, exact ground truth for 1024 queries,
-   and the two-pass SQ4 + exact-rerank search in 4096-query waves at beam
-   100 and at the smallest beam of bench.py's list that clears recall
-   0.955.  Fails if recall@10 at beam 100 is below 0.95 or if a kernel's
-   launch count over the run differs from the number of build waves.
+   two-pass SQ4 + exact-rerank search in 4096-query waves at beam 100 and
+   at the smallest beam of bench.py's list that clears recall 0.955.
+   Fails if recall@10 at beam 100 is below 0.95 or if K1's or K2's launch
+   count over the build differs from the number of build waves;
+5. default configuration (upstream JVector's ``yaml-configs/default.yml``:
+   outDegree 32, efConstruction 100, overflow 1.2, hierarchy, PQ
+   construction and search with M = d/8 = 16, K = 256, no centering, FP32
+   rerank, overquery 1/2/5/10), first at n = 20,000 (512 queries) against
+   the JAX package's recall figures for that corpus, then at ``--n``
+   (1M): PQ compute + encode, ``GraphIndexBuilder(...).build(...,
+   provider=PQ)`` with the hierarchy (per-phase seconds from its
+   ``on_phase``), ADC first pass + exact rerank at beams 10/20/50/100, and the
+   fused PQ first pass at beam 100; QPS over >= 65,536 queries at beams 20
+   and 100 at 1M; an exact first pass at beam 100 over the same graph shows
+   how far the PQ-scored graph itself bounds recall.  Fails if K5 was not
+   launched in the build or in serving, if a result has fewer than 10 ids
+   or non-finite scores, if the 20k recall differs from the JAX figures by
+   more than 0.03, or, at n = 1,000,000, if recall@10 at beam 100 is below
+   0.30 (the floor holds at 1M only: the reference itself reaches 0.26 at
+   50k).
 
-Float32 matrix products run in full float32: TF32 is switched off for
-matmuls and cuDNN.  Imports nothing of JAX.  The last line is the JSON
+Kernel launch counts are read per path: set to 0 just before a path, read
+just after.  Float32 matrix products run in full float32: TF32 is switched
+off for matmuls and cuDNN.  The run uses one card (``CUDA_VISIBLE_DEVICES``
+is the first that ``CUDA_VISIBLE_DEVICES`` lists, else card 0).  Imports nothing of JAX.  The last line is the JSON
 ``{"ok": true, "device": {...}}``; any failure raises before it.
 """
 
@@ -30,12 +52,17 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
-import torch
+# one card, set before CUDA starts: the first the caller lists, else card 0
+os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 BEAMS = (20, 21, 22, 23, 25, 30, 35, 40, 50, 60, 80, 100, 150, 200)  # bench.py's list
 RECALL_FLOOR = 0.95
@@ -45,6 +72,14 @@ GT_QUERIES = 1024
 WAVE = 4096
 N_QUERIES = 8192  # two 4096-query waves, as bench.py's default
 MIN_TIMED_QUERIES = 65_536
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+OVERQUERY = (1, 2, 5, 10)  # default.yml topKOverquery 10: beam = rerank_k = 10 * overquery
+# recall@10 of the JAX package's default configuration on
+# synthetic_dataset(n=20_000, dim=128, n_queries=512, k=10, n_clusters=64,
+# seed=0), PQ M=16 K=256 uncentered, hierarchy, ADC first pass + FP32 rerank
+JAX_RECALL_20K = {10: 0.1521, 20: 0.2412, 50: 0.3828, 100: 0.5066}
+PARITY_SLACK = 0.03  # the port's k-means draws differ from jax.random's
+SANITY_FLOOR_1M = 0.30  # recall@10 at beam 100 at n = 1M: catches a broken search (no JAX figure at 1M)
 
 
 def emit(obj: dict) -> None:
@@ -68,12 +103,14 @@ def median_ms(fn, reps: int = 20) -> float:
 def phase_env() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    if torch.cuda.device_count() != 1:
+        raise SystemExit(f"chip_smoke: {torch.cuda.device_count()} devices visible, the run uses one")
     from jvector_tpu_torch.ops.kernels._build import find_nvcc
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    ).stdout.strip().splitlines()[0]
     nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True, text=True, check=True)
     emit({
         "phase": "env",
@@ -86,17 +123,24 @@ def phase_env() -> str:
         "nvidia_smi": smi,
         "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32},
     })
-    print(smi, flush=True)
     return smi
 
 
 def phase_build() -> None:
-    from jvector_tpu_torch.ops.kernels import packed_adj, scatter_rows
+    from jvector_tpu_torch.ops.kernels import _build, adc, packed_adj, scatter_rows
 
     t0 = time.time()
-    packed_adj._lib()
-    scatter_rows._lib()
-    emit({"phase": "kernel_build", "seconds": time.time() - t0})
+    sources = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        list(pool.map(_build.build, sources))
+    for mod in (packed_adj, scatter_rows, adc):
+        mod._lib()
+    emit({"phase": "kernel_build", "sources": sources, "seconds": time.time() - t0})
+
+
+def bound_ms(n_bytes: int) -> float:
+    """Least time to move ``n_bytes`` through device memory, in ms."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
 def _k1_inputs(rng: np.random.Generator, dev, n_cap: int = 1_048_576):
@@ -182,6 +226,72 @@ def _k2_inputs(rng: np.random.Generator, dev, n_cap: int = 1_048_576):
     return table, args
 
 
+def _k1_bytes(adj: torch.Tensor, args: tuple) -> int:
+    """K1's least traffic: every stream read once, every written id /
+    score / w2 and image written once."""
+    n_pr = adj.shape[0]
+    a_rows, a_adj, a_w2, prow, _, _, _, _, _, img, e_adj, e_w2 = args
+    read = sum(x.numel() * x.element_size() for x in args)
+    ok = (prow >= 0) & (prow < n_pr)
+    n_wave = int(((a_rows >= 0) & (a_rows < n_pr)).sum())
+    n_app, n_img = int((ok & (img < 0)).sum()), int((ok & (img >= 0)).sum())
+    return read + n_wave * 2 * a_adj[0].numel() * 4 + n_app * 3 * 4 + n_img * 2 * 128 * 4
+
+
+def _k2_bytes(table: torch.Tensor, args: tuple) -> int:
+    """K2's least traffic: every stream read once, every written row image
+    and slot written once."""
+    n, row = table.shape[0], table[0].numel()
+    wave_rows, _, patch_rows, _, patch_src, er_rows, _ = args
+    read = sum(x.numel() * x.element_size() for x in args)
+
+    def valid(r):
+        return int(((r >= 0) & (r < n)).sum())
+
+    return read + (valid(wave_rows) + valid(er_rows)) * row + valid(patch_rows) * patch_src.shape[1]
+
+
+def _k5_inputs(gen: torch.Generator, q: int, c: int, m: int, k: int):
+    dev = torch.device("cuda")
+    luts = torch.rand((q, m, k), generator=gen, device=dev) * 50.0
+    codes = torch.randint(0, k, (q, c, m), generator=gen, device=dev, dtype=torch.uint8)
+    return luts, codes
+
+
+def _k5_check(gen, q, c, m, k, timed: bool) -> dict:
+    from jvector_tpu_torch.ops.adc import adc_score
+    from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel
+
+    luts, codes = _k5_inputs(gen, q, c, m, k)
+    got = adc_score_kernel(luts, codes)
+    want = adc_score(luts, codes)
+    torch.cuda.synchronize()
+    row = {"shape": {"Q": q, "C": c, "M": m, "K": k},
+           "allclose": bool(torch.allclose(got, want, rtol=1e-5, atol=1e-4)),
+           "max_abs_err": float((got - want).abs().max()),
+           "bytes": luts.numel() * 4 + codes.numel() + got.numel() * 4}
+    row["bound_ms"] = bound_ms(row["bytes"])
+    if timed:
+        row["ms"] = median_ms(lambda: adc_score_kernel(luts, codes))
+        row["plain_ms"] = median_ms(lambda: adc_score(luts, codes))
+        row["library_ms"] = median_ms(lambda: torch.gather(luts, 2, codes.transpose(1, 2).long()).sum(1))
+    return row
+
+
+# K5 shapes: the serve and build-search shapes this path gives the kernel
+# (R = 56 adjacency slots of the PQ-built base layer, E = 2 expansions per
+# build step, 64 slots on the SQ4-built upper levels), the intra-wave and
+# centroid-scan calls, and an unaligned shape (M not a multiple of 16, K < 256)
+K5_SHAPES = {
+    "serve": (4096, 56, 16, 256),
+    "serve_fused_levels": (4096, 64, 16, 256),
+    "build_search": (512, 112, 16, 256),
+    "build_intra_wave": (512, 512, 16, 256),
+    "centroid_scan": (1, 1_000_000, 16, 256),
+    "unaligned": (13, 19, 5, 32),
+}
+
+
 def phase_kernel_check() -> list[dict]:
     from jvector_tpu_torch.ops.kernels.packed_adj import packed_adj_update_inplace, packed_adj_update_ref
     from jvector_tpu_torch.ops.kernels.scatter_rows import fused_update_inplace, fused_update_ref
@@ -203,14 +313,16 @@ def phase_kernel_check() -> list[dict]:
     changed = int((ka != adj).any(dim=(1, 2)).sum())
     ms = median_ms(lambda: packed_adj_update_inplace(ka, kw, *args))
     plain_ms = median_ms(lambda: packed_adj_update_ref(ra, rw, *args))
+    n_bytes = _k1_bytes(adj, args)
     emit({"phase": "kernel_check", "kernel": "K1 packed_adj_update_inplace", "bit_exact": exact,
-          "physical_rows_changed": changed, "ms": ms, "plain_ms": plain_ms})
+          "physical_rows_changed": changed, "ms": ms, "plain_ms": plain_ms, "bytes": n_bytes})
     if not exact or changed == 0:
         raise SystemExit("K1 disagrees with its twin")
     out.append({"name": "packed_adj_update_inplace", "route": "cuda",
                 "source": "jvector_tpu_torch/csrc/packed_adj.cu",
                 "replaces": "jvector_tpu/ops/pallas/packed_adj.py:364",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None})
     del adj, w2t, ka, kw, ra, rw, args
 
     table, args = _k2_inputs(rng, dev)
@@ -224,26 +336,80 @@ def phase_kernel_check() -> list[dict]:
     changed = int((kt != table).any(dim=(1, 2)).sum())
     ms = median_ms(lambda: fused_update_inplace(kt, *args))
     plain_ms = median_ms(lambda: fused_update_ref(rt, *args))
+    n_bytes = _k2_bytes(table, args)
     emit({"phase": "kernel_check", "kernel": "K2 fused_update_inplace", "bit_exact": exact,
-          "rows_changed": changed, "ms": ms, "plain_ms": plain_ms})
+          "rows_changed": changed, "ms": ms, "plain_ms": plain_ms, "bytes": n_bytes})
     if not exact or changed == 0:
         raise SystemExit("K2 disagrees with its twin")
     out.append({"name": "fused_update_inplace", "route": "cuda",
                 "source": "jvector_tpu_torch/csrc/fused_update.cu",
                 "replaces": "jvector_tpu/ops/pallas/scatter_rows.py:426",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None})
     del table, kt, rt, args
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    rows = {name: _k5_check(gen, *shape, timed=name != "unaligned")
+            for name, shape in K5_SHAPES.items()}
+    emit({"phase": "kernel_check", "kernel": "K5 adc_score_kernel", "shapes": rows})
+    bad = [name for name, r in rows.items() if not r["allclose"]]
+    if bad:
+        raise SystemExit(f"K5 disagrees with its twin at {bad}")
+    serve = rows["serve"]
+    out.append({"name": "adc_score_kernel", "route": "cuda",
+                "source": "jvector_tpu_torch/csrc/adc.cu",
+                "replaces": "jvector_tpu/ops/pallas/adc_kernel.py:63",
+                "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+                "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
+                "bound_by": "bytes", "library_ms": serve["library_ms"]})
     torch.cuda.empty_cache()
     return out
 
 
-def phase_main_path(n: int, dev: torch.device) -> dict:
+def _counters() -> dict:
+    from jvector_tpu_torch.ops.kernels import adc_score_kernel, fused_update_inplace, packed_adj_update_inplace
+
+    return {"packed_adj_update_inplace": packed_adj_update_inplace,
+            "fused_update_inplace": fused_update_inplace,
+            "adc_score_kernel": adc_score_kernel}
+
+
+def reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _check_result(res, n_q: int, what: str) -> np.ndarray:
+    ids, scores = res.ids.cpu().numpy(), res.scores.cpu().numpy()
+    if ids.shape != (n_q, TOP_K) or not np.isfinite(scores[ids >= 0]).all():
+        raise SystemExit(f"{what}: ids {ids.shape} or non-finite scores")
+    if (ids < 0).any():
+        raise SystemExit(f"{what}: fewer than {TOP_K} results")
+    return ids
+
+
+def _qps(run, queries: torch.Tensor) -> float:
+    waves = [queries[i : i + WAVE] for i in range(0, queries.shape[0] - WAVE + 1, WAVE)]
+    run(waves[0]).ids.cpu()  # warm-up
+    timed = waves * max(1, -(-MIN_TIMED_QUERIES // (len(waves) * WAVE)))
+    torch.cuda.synchronize()
+    t = time.time()
+    for wv in timed:
+        run(wv)
+    torch.cuda.synchronize()
+    return len(timed) * WAVE / (time.time() - t)
+
+
+def phase_sq4_path(n: int, dev: torch.device) -> dict:
     from jvector_tpu_torch.graph import GraphConfig, build_graph, search
     from jvector_tpu_torch.graph.builder import _shuffled_wave_starts
-    from jvector_tpu_torch.ops.kernels.packed_adj import packed_adj_update_inplace
-    from jvector_tpu_torch.ops.kernels.scatter_rows import fused_update_inplace
     from jvector_tpu_torch.quantization import ScalarQuantization4
-    from jvector_tpu_torch.util.datasets import exact_ground_truth, recall_at_k, synthetic_dataset
+    from jvector_tpu_torch.util.datasets import recall_at_k, synthetic_dataset
 
     cfg = GraphConfig(max_degree=32, ef_construction=100)
     t0 = time.time()
@@ -251,15 +417,15 @@ def phase_main_path(n: int, dev: torch.device) -> dict:
                            n_clusters=max(64, n // 500), seed=0, device=dev)
     base = torch.as_tensor(ds.base, device=dev)
     queries = torch.as_tensor(ds.queries, device=dev)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    sync()
+    gt = ds.ground_truth[:GT_QUERIES]
+    torch.cuda.synchronize()
     data_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()  # the index's peak, not the ground truth's
 
-    packed_adj_update_inplace.launches = 0
-    fused_update_inplace.launches = 0
+    reset_counts()
     t0 = time.time()
     graph, exact = build_graph(base, "euclidean", cfg)
-    sync()
+    torch.cuda.synchronize()
     build_s = time.time() - t0
     n_waves = len(_shuffled_wave_starts(n, cfg.wave_size))
 
@@ -267,33 +433,16 @@ def phase_main_path(n: int, dev: torch.device) -> dict:
     sq = ScalarQuantization4.compute(base)
     codes = torch.nn.functional.pad(sq.encode(base), (0, 0, 0, graph.capacity - n))
     sq4 = sq.provider_for_graph(codes, graph.base.neighbors, "euclidean")
-    sync()
+    torch.cuda.synchronize()
     encode_s = time.time() - t0
-    gt = exact_ground_truth(base, queries[:GT_QUERIES], TOP_K, device=dev)
 
     def run(qs, beam):
         return search(graph, sq4, qs, top_k=TOP_K, beam_width=beam, rerank_k=beam,
                       reranker=exact, repack_after=max(8, int(1.6 * beam)))
 
     def recall(beam):
-        res = run(queries[:GT_QUERIES], beam)
-        ids, scores = res.ids.cpu().numpy(), res.scores.cpu().numpy()
-        if ids.shape != (GT_QUERIES, TOP_K) or not np.isfinite(scores[ids >= 0]).all():
-            raise SystemExit(f"search returned ids {ids.shape} or non-finite scores at beam {beam}")
-        if (ids < 0).any():
-            raise SystemExit(f"search returned fewer than {TOP_K} results at beam {beam}")
+        ids = _check_result(run(queries[:GT_QUERIES], beam), GT_QUERIES, f"SQ4 search at beam {beam}")
         return recall_at_k(ids, gt, TOP_K)
-
-    def qps(beam):
-        waves = [queries[i : i + WAVE] for i in range(0, queries.shape[0] - WAVE + 1, WAVE)]
-        run(waves[0], beam).ids.cpu()  # warm-up
-        timed = waves * max(1, -(-MIN_TIMED_QUERIES // (len(waves) * WAVE)))
-        sync()
-        t = time.time()
-        for wv in timed:
-            run(wv, beam)
-        sync()
-        return len(timed) * WAVE / (time.time() - t)
 
     points = {}
     chosen = None
@@ -306,41 +455,156 @@ def phase_main_path(n: int, dev: torch.device) -> dict:
     for beam in sorted({100, chosen or BEAMS[-1]}):
         if beam not in points:
             points[beam] = {"recall": recall(beam)}
-        points[beam]["qps"] = qps(beam)
-    launches = {"packed_adj_update_inplace": packed_adj_update_inplace.launches,
-                "fused_update_inplace": fused_update_inplace.launches}
+        points[beam]["qps"] = _qps(lambda q, b=beam: run(q, b), queries)
+    launches = read_counts()
     result = {
-        "phase": "main_path", "n": n, "dim": 128, "n_waves": n_waves,
+        "phase": "sq4_path", "n": n, "dim": 128, "n_waves": n_waves,
         "data_seconds": data_s, "build_seconds": build_s, "sq4_encode_seconds": encode_s,
         "average_degree": graph.average_degree(), "headline_beam": chosen,
         "beams": {str(b): v for b, v in sorted(points.items())}, "launches": launches,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(result)
     if points[100]["recall"] < RECALL_FLOOR:
         raise SystemExit(f"recall@10 at beam 100 is {points[100]['recall']} < {RECALL_FLOOR}")
-    for name, count in launches.items():
-        if count != n_waves:
-            raise SystemExit(f"{name} launched {count} times over {n_waves} build waves")
+    for name in ("packed_adj_update_inplace", "fused_update_inplace"):
+        if launches[name] != n_waves:
+            raise SystemExit(f"{name} launched {launches[name]} times over {n_waves} build waves")
+    return result
+
+
+def phase_default_config(n: int, dev: torch.device, n_queries: int, n_clusters: int, gt_queries: int,
+                         timed_beams: tuple) -> dict:
+    """Upstream JVector's default configuration end to end (see the module
+    docstring); returns the result line."""
+    from jvector_tpu_torch.graph import (
+        ExactScoreProvider, FusedADCScoreProvider, GraphConfig, GraphIndexBuilder, build_fused_codes, search,
+    )
+    from jvector_tpu_torch.graph.index import bucket_capacity
+    from jvector_tpu_torch.quantization import ProductQuantization
+    from jvector_tpu_torch.util.datasets import recall_at_k, synthetic_dataset
+
+    cfg = GraphConfig(max_degree=32, ef_construction=100, neighbor_overflow=1.2, add_hierarchy=True)
+    t0 = time.time()
+    ds = synthetic_dataset(n=n, dim=128, n_queries=n_queries, k=TOP_K, n_clusters=n_clusters, seed=0, device=dev)
+    base = torch.as_tensor(ds.base, device=dev)
+    queries = torch.as_tensor(ds.queries, device=dev)
+    gt = ds.ground_truth[:gt_queries]
+    torch.cuda.synchronize()
+    data_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()  # the index's peak, not the ground truth's
+    n_cap = bucket_capacity(n)
+
+    reset_counts()
+    start = read_counts()
+    t0 = time.time()
+    pq = ProductQuantization.compute(base, m=128 // 8, clusters=256, globally_center=False)
+    torch.cuda.synchronize()
+    pq_s = time.time() - t0
+    t0 = time.time()
+    codes = pq.encode(base)
+    torch.cuda.synchronize()
+    encode_s = time.time() - t0
+    build_prov = pq.provider(torch.nn.functional.pad(codes, (0, 0, 0, n_cap - n)), "euclidean")
+    phases, prev = {}, [start]
+
+    def on_phase(name: str, secs: float) -> None:  # the outer build's phases, with their launches
+        counts = read_counts()
+        phases[name] = {"seconds": secs, "launches": {k: counts[k] - prev[0][k] for k in counts}}
+        prev[0] = counts
+
+    t0 = time.time()
+    graph, _ = GraphIndexBuilder(cfg, on_phase=on_phase).build(base, "euclidean", provider=build_prov)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    build_launches = read_counts()
+    recon = pq.reconstruction_error(base[: min(n, 131_072)])
+
+    exact = ExactScoreProvider(vectors=torch.nn.functional.pad(base, (0, 0, 0, n_cap - n)))
+    first = pq.provider(codes, "euclidean")
+    reset_counts()
+
+    def run(prov, qs, beam):
+        return search(graph, prov, qs, top_k=TOP_K, beam_width=beam, rerank_k=beam, reranker=exact)
+
+    recalls, qps = {}, {}
+    for oq in OVERQUERY:
+        beam = TOP_K * oq
+        ids = _check_result(run(first, queries[:gt_queries], beam), gt_queries, f"PQ search at beam {beam}")
+        recalls[beam] = recall_at_k(ids, gt, TOP_K)
+    ids = _check_result(search(graph, exact, queries[:gt_queries], top_k=TOP_K, beam_width=100), gt_queries,
+                        "exact first pass at beam 100")
+    exact_first = recall_at_k(ids, gt, TOP_K)
+    for beam in timed_beams:
+        qps[beam] = _qps(lambda q, b=beam: run(first, q, b), queries)
+    t0 = time.time()
+    fused = FusedADCScoreProvider(codes=codes, fused_codes=build_fused_codes(graph.base.neighbors, build_prov.codes),
+                                  codebooks=pq.codebooks, center=pq.center, sim=first.sim)
+    torch.cuda.synchronize()
+    fused_s = time.time() - t0
+    ids = _check_result(run(fused, queries[:gt_queries], 100), gt_queries, "FUSED_PQ search at beam 100")
+    fused_recall = recall_at_k(ids, gt, TOP_K)
+    fused_qps = _qps(lambda q: run(fused, q, 100), queries) if timed_beams else None
+    serve_launches = read_counts()
+
+    result = {
+        "phase": "default_config", "n": n, "dim": 128, "queries": n_queries, "gt_queries": gt_queries,
+        "pq": {"m": pq.m, "k": pq.clusters, "centered": pq.center is not None,
+               "reconstruction_error": recon, "train_seconds": pq_s, "encode_seconds": encode_s},
+        "data_seconds": data_s, "build_seconds": build_s, "build_phases": phases,
+        "levels": graph.num_levels, "level_sizes": [int(n)] + [int(x.shape[0]) for x in graph.level_node_ids],
+        "average_degree": graph.average_degree(),
+        "recall": {str(b): r for b, r in recalls.items()},
+        "exact_first_pass_recall_100": exact_first,
+        "qps": {str(b): q for b, q in qps.items()},
+        "fused_pq": {"recall_100": fused_recall, "qps_100": fused_qps, "table_seconds": fused_s},
+        "launches": {"build": build_launches, "serve": serve_launches},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(result)
+    if build_launches["adc_score_kernel"] == 0 or serve_launches["adc_score_kernel"] == 0:
+        raise SystemExit(f"K5 was not launched in the build or in serving: {result['launches']}")
+    if graph.num_levels > 1 and (build_launches["fused_update_inplace"] == 0):
+        raise SystemExit("the hierarchy's sub-builds launched no K2")
     return result
 
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--n", type=int, default=1_000_000, help="corpus size")
+    p.add_argument("--n", type=int, default=1_000_000, help="corpus size of the SQ4 and default-config paths")
     args = p.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
 
     phase_env()
     phase_build()
     kernels = phase_kernel_check()
-    result = phase_main_path(args.n, torch.device("cuda"))
+    sq4 = phase_sq4_path(args.n, dev)
+    small = phase_default_config(20_000, dev, n_queries=512, n_clusters=64, gt_queries=512, timed_beams=())
+    off = {b: small["recall"][str(b)] - JAX_RECALL_20K[b] for b in JAX_RECALL_20K}
+    emit({"phase": "default_config_parity", "n": 20_000, "jax_recall": JAX_RECALL_20K,
+          "port_minus_jax": off, "slack": PARITY_SLACK})
+    if any(abs(d) > PARITY_SLACK for d in off.values()):
+        raise SystemExit(f"20k default-config recall differs from the JAX figures by more than {PARITY_SLACK}: {off}")
+    big = phase_default_config(args.n, dev, n_queries=N_QUERIES, n_clusters=max(64, args.n // 500),
+                               gt_queries=GT_QUERIES, timed_beams=(20, 100))
+    if args.n == 1_000_000 and big["recall"]["100"] < SANITY_FLOOR_1M:
+        raise SystemExit(f"recall@10 at beam 100 is {big['recall']['100']} < {SANITY_FLOOR_1M}")
+
+    paths = {"sq4_path": sq4["launches"], "default_config_20k": small["launches"],
+             "default_config": big["launches"]}
     for k in kernels:
-        k["launches"] = result["launches"][k["name"]]
+        name = k["name"]
+        by_path = {"sq4_path": paths["sq4_path"][name],
+                   "default_config_build": paths["default_config"]["build"][name],
+                   "default_config_serve": paths["default_config"]["serve"][name]}
+        k["launches"] = by_path["sq4_path"] if name != "adc_score_kernel" else (
+            by_path["default_config_build"] + by_path["default_config_serve"])
+        k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
+                                             "kind": torch.cuda.get_device_name(torch.cuda.current_device()),
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 

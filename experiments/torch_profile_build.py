@@ -1,18 +1,23 @@
 """Where the time goes in the PyTorch/CUDA port, on one CUDA device.
 
-    python experiments/torch_profile_build.py --n 200000
+    python experiments/torch_profile_build.py --n 200000                    # the SQ4 path
+    python experiments/torch_profile_build.py --n 200000 --config default   # JVector's default config
 
 Prints one JSON line per measurement:
 
-1. the build of ``synthetic_dataset(n, 128)`` at ``GraphConfig(max_degree=32,
-   ef_construction=100)`` with host timers around each wave phase
-   (``_wave_search``, ``_wave_update_compute``, ``_wave_apply_packed``,
-   ``packed_cleanup``), each bracketed by a device sync, and the beam
-   loop's step counts per wave search;
+1. the build of ``synthetic_dataset(n, 128)`` with host timers around each
+   wave phase, each bracketed by a device sync, and the beam loop's step
+   counts per wave search.  ``sq4``: ``GraphConfig(max_degree=32,
+   ef_construction=100)``, phases ``_wave_search``, ``_wave_update_compute``,
+   ``_wave_apply_packed``, ``packed_cleanup``.  ``default``: the same with
+   overflow 1.2 and the hierarchy, built on PQ (M=16, K=256, uncentered),
+   phases ``_wave_search``, ``_wave_update_plain``, ``_enforce_chunk``
+   (the hierarchy's SQ4 sub-builds count into ``_wave_search``);
 2. the device busy share of a fresh 20-wave build (``torch.profiler``:
    the sum of CUDA kernel self time over the wall time);
-3. the same for one 4096-query two-pass SQ4 search wave at beams 100 and 30
-   on the graph of step 1, with recall@10 and the top device kernels.
+3. the same for one 4096-query two-pass search wave (SQ4 with the
+   repacked tail at beams 100 and 30, or PQ-ADC at beams 100 and 20) on
+   the graph of step 1, with recall@10 and the top device kernels.
 
 The synced timers serialise host and device, so step 1's total is slower
 than an untimed build; use its shares, not its sum.  Ends with the card's
@@ -34,12 +39,22 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from jvector_tpu_torch.graph import GraphConfig, search  # noqa: E402
+from jvector_tpu_torch.graph import ExactScoreProvider, GraphConfig, search  # noqa: E402
 from jvector_tpu_torch.graph import builder as tb  # noqa: E402
-from jvector_tpu_torch.quantization import ScalarQuantization4  # noqa: E402
+from jvector_tpu_torch.graph.index import bucket_capacity  # noqa: E402
+from jvector_tpu_torch.quantization import ProductQuantization, ScalarQuantization4  # noqa: E402
 from jvector_tpu_torch.util.datasets import recall_at_k, synthetic_dataset  # noqa: E402
 
-PHASES = ("_wave_search", "_wave_update_compute", "_wave_apply_packed", "packed_cleanup")
+CONFIGS = {
+    "sq4": (
+        GraphConfig(max_degree=32, ef_construction=100),
+        ("_wave_search", "_wave_update_compute", "_wave_apply_packed", "packed_cleanup"),
+    ),
+    "default": (
+        GraphConfig(max_degree=32, ef_construction=100, neighbor_overflow=1.2, add_hierarchy=True),
+        ("_wave_search", "_wave_update_plain", "_enforce_chunk"),
+    ),
+}
 
 
 def _busy(prof, wall: float, top: int = 12) -> dict:
@@ -54,11 +69,20 @@ def _busy(prof, wall: float, top: int = 12) -> dict:
     }
 
 
-def timed_build(base: torch.Tensor, cfg: GraphConfig):
+def _pq_provider(base: torch.Tensor):
+    """The default config's PQ (M=16, K=256, uncentered) and its build
+    provider, codes padded to the capacity."""
+    pq = ProductQuantization.compute(base, m=16, clusters=256, globally_center=False)
+    codes = pq.encode(base)
+    pad = bucket_capacity(base.shape[0]) - base.shape[0]
+    return pq, codes, pq.provider(torch.nn.functional.pad(codes, (0, 0, 0, pad)), "euclidean")
+
+
+def timed_build(base: torch.Tensor, cfg: GraphConfig, phases: tuple, provider=None):
     """Build with synced host timers around each wave phase."""
     acc: dict[str, float] = {}
     steps: list[int] = []
-    saved = {name: getattr(tb, name) for name in (*PHASES, "search_layer")}
+    saved = {name: getattr(tb, name) for name in (*phases, "search_layer")}
 
     def timer(name, fn):
         def wrapped(*a, **k):
@@ -76,12 +100,12 @@ def timed_build(base: torch.Tensor, cfg: GraphConfig):
         steps.append(int(state.iters))
         return state
 
-    for name in PHASES:
+    for name in phases:
         setattr(tb, name, timer(name, saved[name]))
     tb.search_layer = counted_search
     try:
         t = time.time()
-        graph, exact = tb.build_graph(base, "euclidean", cfg)
+        graph, exact = tb.build_graph(base, "euclidean", cfg, provider=provider)
         torch.cuda.synchronize()
         build_s = time.time() - t
     finally:
@@ -100,6 +124,7 @@ def timed_build(base: torch.Tensor, cfg: GraphConfig):
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--n", type=int, default=200_000, help="corpus size")
+    p.add_argument("--config", choices=sorted(CONFIGS), default="sq4")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -107,31 +132,41 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     n = args.n
-    cfg = GraphConfig(max_degree=32, ef_construction=100)
+    cfg, phase_names = CONFIGS[args.config]
     ds = synthetic_dataset(n=n, dim=128, n_queries=4096, k=10, n_clusters=max(64, n // 500), seed=0, device=dev)
     base = torch.as_tensor(ds.base, device=dev)
+    pq = codes = None
+    if args.config == "default":
+        pq, codes, build_prov = _pq_provider(base)
+    else:
+        build_prov = None
 
-    graph, exact, phases = timed_build(base, cfg)
-    print(json.dumps({"n": n, **phases}), flush=True)
+    graph, exact, phases = timed_build(base, cfg, phase_names, build_prov)
+    print(json.dumps({"config": args.config, "n": n, **phases}), flush=True)
 
     sub = base[: cfg.wave_size * 20]
+    sub_prov = _pq_provider(sub)[2] if args.config == "default" else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.time()
-        tb.build_graph(sub, "euclidean", cfg)
+        tb.build_graph(sub, "euclidean", cfg, provider=sub_prov)
         torch.cuda.synchronize()
         wall = time.time() - t
-    print(json.dumps({"window": f"build of 20 waves (n={sub.shape[0]})", **_busy(prof, wall)}), flush=True)
+    print(json.dumps({"window": f"{args.config} build of 20 waves (n={sub.shape[0]})", **_busy(prof, wall)}), flush=True)
 
-    sq = ScalarQuantization4.compute(base)
-    codes = torch.nn.functional.pad(sq.encode(base), (0, 0, 0, graph.capacity - n))
-    sq4 = sq.provider_for_graph(codes, graph.base.neighbors, "euclidean")
     queries = torch.as_tensor(ds.queries, device=dev)
-    for beam in (100, 30):
+    if args.config == "default":
+        exact = ExactScoreProvider(vectors=torch.nn.functional.pad(base, (0, 0, 0, graph.capacity - n)))
+        first, beams, repack = pq.provider(codes, "euclidean"), (100, 20), False
+    else:
+        sq = ScalarQuantization4.compute(base)
+        sq_codes = torch.nn.functional.pad(sq.encode(base), (0, 0, 0, graph.capacity - n))
+        first, beams, repack = sq.provider_for_graph(sq_codes, graph.base.neighbors, "euclidean"), (100, 30), True
+    for beam in beams:
 
         def run():
-            return search(graph, sq4, queries, top_k=10, beam_width=beam, rerank_k=beam,
-                          reranker=exact, repack_after=max(8, int(1.6 * beam)))
+            return search(graph, first, queries, top_k=10, beam_width=beam, rerank_k=beam,
+                          reranker=exact, repack_after=max(8, int(1.6 * beam)) if repack else 0)
 
         run()  # warm-up
         torch.cuda.synchronize()
@@ -141,7 +176,7 @@ def main() -> None:
             torch.cuda.synchronize()
             wall = time.time() - t
         print(json.dumps({
-            "window": f"search wave Q={queries.shape[0]} beam {beam} (n={n})",
+            "window": f"{args.config} search wave Q={queries.shape[0]} beam {beam} (n={n})",
             "recall": recall_at_k(res.ids.cpu().numpy(), ds.ground_truth, 10),
             "expanded_mean": float(res.expanded_count.float().mean()),
             **_busy(prof, wall),

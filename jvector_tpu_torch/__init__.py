@@ -1,16 +1,18 @@
 """jvector_tpu_torch — the PyTorch/CUDA port of ``jvector_tpu``.
 
-The same layout and public names as the JAX package, for the slice ported so
-far: the packed-adjacency SQ4 graph build and the two-pass SQ4 search.  The
+The same layout and public names as the JAX package, for the slices ported
+so far: the SQ4 graph builds (packed and fused wave loops), the PQ-scored
+build, the HNSW hierarchy, and two-pass search with an SQ4 or PQ-ADC first
+pass and an exact rerank.  The
 port imports ``torch`` and never ``jax``; the JAX package stays the
 reference that the port's tests hold it against.
 
 - ``ops``           — similarity measures; ``ops/kernels`` holds the Python
   wrappers of the hand-written CUDA kernels (sources in ``csrc/``) with
   their plain PyTorch twins
-- ``quantization``  — SQ4 (4-bit scalar quantization)
+- ``quantization``  — SQ4 (4-bit scalar quantization), PQ (k-means codebooks)
 - ``graph``         — graph data model, score providers, robust prune,
-  query-wave beam search, wave builder
+  query-wave beam search, wave builders, hierarchy
 - ``util``          — synthetic corpora, exact ground truth, recall
 - ``convert``       — the JAX package's state (as numpy) -> the port's
 """
@@ -23,7 +25,7 @@ from jvector_tpu_torch.graph import (
     search,
 )
 from jvector_tpu_torch.ops.similarity import SimilarityFunction
-from jvector_tpu_torch.quantization import ScalarQuantization4
+from jvector_tpu_torch.quantization import ProductQuantization, ScalarQuantization4
 
 __all__ = [
     "SimilarityFunction",
@@ -33,4 +35,5 @@ __all__ = [
     "build_graph",
     "search",
     "ScalarQuantization4",
+    "ProductQuantization",
 ]

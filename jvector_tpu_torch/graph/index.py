@@ -69,10 +69,13 @@ class GraphLayer(NamedTuple):
 
 
 class GraphIndex(NamedTuple):
-    """The index: base layer (+ hierarchy levels, not built by this port yet).
+    """The index: base layer + HNSW-style upper levels.
 
-    ``entry_node`` and ``num_nodes`` are 0-dim int32 tensors on the graph's
-    device, so the build loop never waits on the device to read them.
+    Upper layer ``l`` (``layers[l]``, l >= 1) is in *slot space*: its rows
+    and neighbor ids are positions in ``level_node_ids[l - 1]``, the sorted
+    base ordinals of the nodes on level ``l`` or above.  ``entry_node`` and
+    ``num_nodes`` are 0-dim int32 tensors on the graph's device, so the
+    build loop never waits on the device to read them.
     """
 
     layers: tuple[GraphLayer, ...]
@@ -114,7 +117,7 @@ def bucket_capacity(n: int, min_bucket: int = 256) -> int:
     return ((n + step - 1) // step) * step
 
 
-def empty_layer(capacity: int, row_cap: int, device: torch.device | str = "cpu") -> GraphLayer:
+def empty_layer(capacity: int, row_cap: int, device: torch.device | str) -> GraphLayer:
     return GraphLayer(
         neighbors=torch.full((capacity, row_cap), -1, dtype=torch.int32, device=device),
         scores=torch.full((capacity, row_cap), NEG_INF, dtype=torch.float32, device=device),
@@ -122,9 +125,7 @@ def empty_layer(capacity: int, row_cap: int, device: torch.device | str = "cpu")
     )
 
 
-def empty_graph(
-    capacity: int, config: GraphConfig, device: torch.device | str = "cpu"
-) -> GraphIndex:
+def empty_graph(capacity: int, config: GraphConfig, device: torch.device | str) -> GraphIndex:
     """Allocate an empty single-level graph with the config's row capacity."""
     return GraphIndex(
         layers=(empty_layer(capacity, config.row_cap, device),),

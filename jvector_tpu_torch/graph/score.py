@@ -1,10 +1,11 @@
-"""Score providers (counterpart of ``jvector_tpu/graph/score.py``, the
-exact and SQ4 providers of the main path).
+"""Score providers (counterpart of ``jvector_tpu/graph/score.py``: the
+exact, SQ4, PQ-ADC and fused PQ-ADC providers).
 
 A provider has ``prepare(queries)`` -> per-wave query state and
 ``score(qstate, ids [Q, C])`` -> ``[Q, C]`` scores (higher = closer); the
-SQ4 provider adds ``score_edges`` over its fused neighbor-code table, and
-both add ``pairwise`` for the diversity prune.
+fused providers add ``score_edges`` over their neighbor-code tables, and
+the build providers add ``pairwise`` for the diversity prune.  The PQ
+providers score through the K5 kernel (``ops/kernels/adc.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import dataclasses
 
 import torch
 
+from jvector_tpu_torch.ops.adc import build_partial_sums, partial_squared_magnitudes
+from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel
 from jvector_tpu_torch.ops.similarity import SimilarityFunction, normalize_score, pairwise_raw
 from jvector_tpu_torch.quantization.sq import group_dims, unpack_nibble_rows, unpack_nibble_rows_grouped
 
@@ -231,3 +234,114 @@ def build_fused_sq4(
         out[start : start + blk.shape[0]] = gathered.reshape(blk.shape[0], -1)
         out_w2[start : start + blk.shape[0]] = torch.where(ok, node_w2[safe], 0.0)
     return out, out_w2
+
+
+@dataclasses.dataclass(frozen=True)
+class ADCScoreProvider:
+    """PQ compressed scoring through per-query ADC lookup tables.
+
+    Reference: ``PQVectors.precomputedScoreFunctionFor`` -> ``PQDecoder``
+    (LUT built once per query, gather + sum per candidate) and
+    ``BuildScoreProvider.pqBuildScoreProvider``.
+    """
+
+    codes: torch.Tensor  # [N, M] uint8
+    codebooks: torch.Tensor  # [M, K, S] float32
+    center: torch.Tensor | None  # [D_pad] global centering vector or None
+    sim: SimilarityFunction = SimilarityFunction.EUCLIDEAN
+
+    @property
+    def padded_dim(self) -> int:
+        m, _, s = self.codebooks.shape
+        return m * s
+
+    def prepare(self, queries: torch.Tensor) -> torch.Tensor:
+        """LUTs ``[Q, M, K]`` (the ``calculatePartialSums`` step)."""
+        q = queries.float()
+        if q.shape[-1] < self.padded_dim:
+            q = torch.nn.functional.pad(q, (0, self.padded_dim - q.shape[-1]))
+        if self.center is not None:
+            q = q - self.center
+        if self.sim == SimilarityFunction.COSINE:
+            n = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+            return build_partial_sums(q / torch.clamp(n, min=1e-30), self.codebooks, SimilarityFunction.DOT_PRODUCT)
+        return build_partial_sums(q, self.codebooks, self.sim)
+
+    def _score_codes(self, luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+        """luts ``[Q, M, K]``, codes ``[Q, C, M]`` -> scores ``[Q, C]`` (K5)."""
+        raw = adc_score_kernel(luts, codes)
+        if self.sim == SimilarityFunction.COSINE:
+            c2 = partial_squared_magnitudes(self.codebooks)  # one table for every query
+            mag = adc_score_kernel(c2[None].expand(luts.shape), codes)
+            raw = raw / torch.clamp(torch.sqrt(mag), min=1e-30)
+        return normalize_score(raw, self.sim)
+
+    def score(self, luts: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """ids ``[Q, C]`` (>= 0) -> ``[Q, C]``."""
+        return self._score_codes(luts, self.codes[ids.long()])
+
+    def decode_centered(self, ids: torch.Tensor) -> torch.Tensor:
+        """Codes -> padded, still-centered vectors ``[..., M*S]``
+        (``ProductQuantization.decodeCentered``)."""
+        m = self.codebooks.shape[0]
+        parts = self.codebooks[torch.arange(m, device=ids.device), self.codes[ids.long()].long()]
+        return parts.reshape(*ids.shape, -1)
+
+    def score_nodes(self, node_ids: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Code-to-code scores: node_ids ``[B]``, ids ``[B, R]`` -> ``[B, R]``.
+        Subspaces are independent, so the sum of per-subspace centroid
+        measures equals the measure between the decoded vectors."""
+        a = self.decode_centered(node_ids)[:, None, :]
+        b = self.decode_centered(ids)
+        return normalize_score(pairwise_raw(a, b, self.sim)[:, 0, :], self.sim)
+
+    def pairwise(self, ids_a: torch.Tensor, ids_b: torch.Tensor) -> torch.Tensor:
+        """Batched all-pairs code-to-code ``[B, Ca, Cb]`` (one decode per side)."""
+        a = self.decode_centered(ids_a)
+        b = a if ids_a is ids_b else self.decode_centered(ids_b)
+        return normalize_score(pairwise_raw(a, b, self.sim), self.sim)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedADCScoreProvider:
+    """Edge-fused ADC: each node's row holds its neighbors' PQ codes,
+    slot-aligned with its adjacency row, so one row gather scores a whole
+    expansion (reference ``FusedPQ`` + ``FusedPQDecoder``).  ``codes``
+    remain for entry, hierarchy and arbitrary-id scoring."""
+
+    codes: torch.Tensor  # [N, M] uint8
+    fused_codes: torch.Tensor  # [N, R, M] uint8, aligned with the graph's neighbors
+    codebooks: torch.Tensor  # [M, K, S]
+    center: torch.Tensor | None
+    sim: SimilarityFunction = SimilarityFunction.EUCLIDEAN
+
+    @property
+    def supports_fused(self) -> bool:
+        return True
+
+    def _plain(self) -> ADCScoreProvider:
+        return ADCScoreProvider(codes=self.codes, codebooks=self.codebooks, center=self.center, sim=self.sim)
+
+    def prepare(self, queries: torch.Tensor) -> torch.Tensor:
+        return self._plain().prepare(queries)
+
+    def score(self, luts: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        return self._plain().score(luts, ids)
+
+    def score_edges(self, luts: torch.Tensor, node_ids: torch.Tensor) -> torch.Tensor:
+        """All neighbors of ``node_ids`` ``[Q]`` or ``[Q, E]`` -> ``[Q, E*R]``:
+        one contiguous ``R*M``-byte row per expansion."""
+        codes = self.fused_codes[node_ids.long()]
+        return self._plain()._score_codes(luts, codes.reshape(node_ids.shape[0], -1, codes.shape[-1]))
+
+
+def build_fused_codes(neighbors: torch.Tensor, codes: torch.Tensor, chunk: int = 65_536) -> torch.Tensor:
+    """Each node's neighbors' codes next to its adjacency row ``[N, R, M]``
+    (reference ``FusedPQ.writeInline``); -1 padding slots get code 0."""
+    n, r = neighbors.shape
+    out = torch.zeros((n, r, codes.shape[1]), dtype=torch.uint8, device=neighbors.device)
+    for start in range(0, n, chunk):
+        blk = neighbors[start : start + chunk]
+        gathered = codes[torch.clamp(blk, min=0).long()]
+        out[start : start + blk.shape[0]] = torch.where((blk >= 0)[..., None], gathered, 0)
+    return out

@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from jvector_tpu_torch.graph.hierarchy import LevelProvider, slots_for
 from jvector_tpu_torch.graph.index import NEG_INF, GraphIndex
 
 CHECK_EVERY = 8  # steps between the host's reads of the stop test
@@ -211,6 +212,33 @@ def search_layer(
     return state
 
 
+def _descend_hierarchy(graph: GraphIndex, provider, qstate, n_queries: int) -> torch.Tensor:
+    """Upper-layer descent: per-query layer-0 entry ids ``[Q]``.
+
+    Seeds by scoring all top-level nodes in one batched call, then runs a
+    beam of width 1 on each middle level, as the reference descends
+    (``GraphSearcher.internalSearch:263-282``).
+    """
+    top_ids = graph.level_node_ids[-1]
+    scores = provider.score(qstate, top_ids[None, :].expand(n_queries, -1))
+    scores = torch.where(graph.deleted[top_ids.long()][None, :], NEG_INF, scores)
+    best = top_ids[torch.argmax(scores, dim=1)]
+    # every top node a hole: fall back to the (live) entry point
+    best = torch.where(scores.max(dim=1).values > NEG_INF, best, graph.entry_node.to(torch.int32))
+    for level in range(graph.num_levels - 2, 0, -1):
+        ids_l = graph.level_node_ids[level - 1]
+        beam = search_layer(
+            graph.layers[level].neighbors,
+            LevelProvider(inner=provider, node_ids=ids_l),
+            qstate,
+            slots_for(ids_l, best),
+            beam_width=1,
+            max_iters=64,
+        )
+        best = ids_l[torch.clamp(beam.ids[:, 0], 0, ids_l.shape[0] - 1).long()]
+    return best
+
+
 def _take_qstate(qstate, lanes: torch.Tensor):
     if isinstance(qstate, tuple):
         return tuple(a[lanes] for a in qstate)
@@ -290,26 +318,28 @@ def search(
 ) -> SearchResult:
     """Two-pass wave search (reference ``GraphSearcher.search:222-243``).
 
-    The first pass runs the layer-0 beam with ``provider`` (exact or SQ4);
-    with a ``reranker``, the top ``rerank_k`` beam entries get exact scores
-    and the final top-k comes from those.  ``entry_seeds > 1`` adds k-1
-    ordinal-strided entries; ``repack_after > 0`` cuts the lock-step wave
-    after that many steps and finishes the still-active lanes in a
-    quarter-width sub-wave (identical results whenever the active tail fits).
+    The first pass descends the hierarchy, if the graph has one, then runs
+    the layer-0 beam with ``provider`` (exact, SQ4 or PQ); with a
+    ``reranker``, the top ``rerank_k`` beam entries get exact scores and
+    the final top-k comes from those.  On a flat graph, ``entry_seeds > 1``
+    adds k-1 ordinal-strided entries; ``repack_after > 0`` cuts the
+    lock-step wave after that many steps and finishes the still-active
+    lanes in a quarter-width sub-wave (identical results whenever the
+    active tail fits).
 
-    Filtered search, thresholds, resume and hierarchy descent are not in
-    this port yet.
+    Filtered search, thresholds and resume are not in this port yet.
     """
-    if graph.num_levels > 1:
-        raise NotImplementedError("hierarchy descent is not ported yet")
     if beam_width is None:
         beam_width = max(top_k, 100)
     if rerank_k is None:
         rerank_k = beam_width if reranker is not None else top_k
     qstate = provider.prepare(queries)
     Q = queries.shape[0]
-    entries = graph.entry_node.to(torch.int32).expand(Q)
-    if entry_seeds > 1:
+    if graph.num_levels > 1:
+        entries = _descend_hierarchy(graph, provider, qstate, Q)
+    else:
+        entries = graph.entry_node.to(torch.int32).expand(Q)
+    if graph.num_levels == 1 and entry_seeds > 1:
         entry_seeds = min(entry_seeds, beam_width)
         s = torch.arange(1, entry_seeds, dtype=torch.int32, device=queries.device)
         strided = s * torch.div(graph.num_nodes, entry_seeds, rounding_mode="floor").to(torch.int32)

@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from jvector_tpu_torch.util.device import resolve_device
+
 MAX_TRAINING_SET_SIZE = 131_072
 
 
@@ -65,13 +67,14 @@ class ScalarQuantization4:
         vectors: torch.Tensor | np.ndarray,
         clip_quantile: float = 0.001,
         seed: int = 0,
+        device: torch.device | str | None = None,
     ) -> "ScalarQuantization4":
         """Fit per-dim clipped ranges on a <=128k uniform random sample.
 
         A numpy array is fitted on the host with ``np.quantile``, exactly as
-        the JAX package fits host arrays, into CPU tensors; a tensor is
-        sampled and fitted on its own device.  Pass the full corpus, never a
-        prefix slice.
+        the JAX package fits host arrays, into tensors on ``device`` (default:
+        the card); a tensor is sampled and fitted on its own device.  Pass
+        the full corpus, never a prefix slice.
         """
         n, d = vectors.shape
         idx = None
@@ -89,7 +92,7 @@ class ScalarQuantization4:
             sample = np.asarray(vectors if idx is None else vectors[idx], np.float32)
             lo = np.quantile(sample, clip_quantile, axis=0)
             hi = np.quantile(sample, 1.0 - clip_quantile, axis=0)
-            device = "cpu"
+            device = resolve_device(device)
         d_pad = ((d + 1) // 2) * 2
         # padded dims get scale 1 / offset 0: codes come out 0 and
         # contribute nothing to any measure

@@ -3,7 +3,8 @@
 
 ``synthetic_dataset`` and ``recall_at_k`` are numpy and give the same corpus
 from the same seed as the JAX package; ``exact_ground_truth`` is a blocked
-``torch.topk`` on the given device.
+``torch.topk`` on the given device (the card unless the caller asks for the
+CPU).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from jvector_tpu_torch.ops.similarity import SimilarityFunction, pairwise_scores
+from jvector_tpu_torch.util.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -37,10 +39,11 @@ def exact_ground_truth(
     k: int,
     sim: SimilarityFunction | str = SimilarityFunction.EUCLIDEAN,
     block: int = 200_000,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> np.ndarray:
     """Brute-force top-k on ``device``, blocked over the base to bound memory."""
     sim = SimilarityFunction.parse(sim)
+    device = resolve_device(device)
     q = torch.as_tensor(queries, dtype=torch.float32, device=device)
     best_scores = best_ids = None
     for start in range(0, base.shape[0], block):
@@ -66,14 +69,16 @@ def synthetic_dataset(
     n_clusters: int = 64,
     seed: int = 0,
     latent_dim: int | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> DataSet:
     """Embedding-like clustered synthetic corpus with exact ground truth.
 
     A Gaussian mixture in a low-dimensional latent space projected up to
     ``dim`` with a small iid noise floor; same draws as the JAX package.
+    The ground truth is computed on ``device``.
     """
     sim = SimilarityFunction.parse(sim)
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     ld = latent_dim or max(8, min(dim // 4, 32))
     proj = rng.normal(size=(ld, dim)).astype(np.float32)

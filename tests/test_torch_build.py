@@ -170,7 +170,7 @@ def run(request):
         layers=(tb._unpack_adjacency(t["adj"], t["counts"], tcfg.row_cap),), level_node_ids=(),
         entry_node=t["entry"], num_nodes=t["num"], deleted=torch.zeros((n_cap,), dtype=torch.bool),
     )
-    tg = tb.GraphIndexBuilder(tcfg).cleanup(tg, tprov, _t(data))
+    tg = tb.GraphIndexBuilder(tcfg).cleanup(tg, tprov, _t(data), enforce=False)
     return dict(waves=waves, jg=jg, tg=tg)
 
 

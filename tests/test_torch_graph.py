@@ -10,6 +10,8 @@ equal and scores agree to rtol=atol=1e-5.  A graph the port builds itself
 must reach the JAX-built graph's recall@10 at the same beam within 0.01.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +22,7 @@ from jvector_tpu.graph import build_graph as jbuild
 from jvector_tpu.graph import search as jsearch
 from jvector_tpu.quantization import ScalarQuantization4 as JSQ4
 from jvector_tpu_torch import convert
-from jvector_tpu_torch.graph import ExactScoreProvider, GraphConfig, build_graph, search
+from jvector_tpu_torch.graph import ExactScoreProvider, GraphConfig, GraphIndexBuilder, build_graph, search
 from jvector_tpu_torch.util.datasets import recall_at_k, synthetic_dataset
 
 N, D, Q = 2048, 32, 256
@@ -39,7 +41,7 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def served():
-    ds = synthetic_dataset(n=N, dim=D, n_queries=Q, k=10, seed=3)
+    ds = synthetic_dataset(n=N, dim=D, n_queries=Q, k=10, seed=3, device="cpu")
     sim = ds.similarity.value
     jg, jex = jbuild(ds.base, sim, JConfig())
     jsq = JSQ4.compute(ds.base)  # host array: numpy quantiles
@@ -49,11 +51,11 @@ def served():
 
     tg = convert.graph_from_numpy(
         np.asarray(jg.base.neighbors), np.asarray(jg.base.scores), np.asarray(jg.base.counts),
-        int(jg.entry_node), int(jg.num_nodes), np.asarray(jg.deleted),
+        int(jg.entry_node), int(jg.num_nodes), np.asarray(jg.deleted), device="cpu",
     )
     tex = ExactScoreProvider(vectors=torch.as_tensor(np.array(jex.vectors)), sim=ds.similarity)
-    tsq = convert.sq4_from_numpy(np.asarray(jsq.scale), np.asarray(jsq.offset), jsq.original_dim)
-    tprov = tsq.provider_for_graph(convert.codes_from_numpy(codes), tg.base.neighbors, ds.similarity)
+    tsq = convert.sq4_from_numpy(np.asarray(jsq.scale), np.asarray(jsq.offset), jsq.original_dim, device="cpu")
+    tprov = tsq.provider_for_graph(convert.codes_from_numpy(codes, device="cpu"), tg.base.neighbors, ds.similarity)
     return ds, (jg, jex, jprov), (tg, tex, tprov)
 
 
@@ -107,7 +109,7 @@ def test_repack_identical_when_tail_fits(served):
 
 def test_port_build_recall_matches_jax_build(served):
     ds, (jg, jex, _), _ = served
-    tg, tex = build_graph(ds.base, ds.similarity, GraphConfig())
+    tg, tex = build_graph(ds.base, ds.similarity, GraphConfig(), device="cpu")
     assert tg.capacity == jg.capacity and tg.row_cap == jg.row_cap
     assert int(tg.num_nodes) == N and int(tg.base.counts.max()) <= 32
     for beam in (10, 16):
@@ -118,15 +120,50 @@ def test_port_build_recall_matches_jax_build(served):
         assert rb >= ra - 0.01, (beam, ra, rb)
 
 
+@pytest.mark.parametrize("dim, cfg", [(96, GraphConfig(wave_size=64))], ids=["k4a_full_image_fallback"])
+def test_unported_build_paths_raise(dim, cfg):
+    """The one build path still unported raises instead of falling back:
+    the fused loop's full-image rewrite of whole-tile rows whose codes do
+    not tile 128 lanes (d=96: 48-byte codes), which the JAX package runs on
+    the TPU kernel K4a."""
+    x = np.random.default_rng(0).normal(size=(600, dim)).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="K4a"):
+        build_graph(x, "euclidean", cfg, device="cpu")
+
+
 @pytest.mark.parametrize(
     "dim, cfg",
     [(32, GraphConfig(build_compression=None)), (32, GraphConfig(add_hierarchy=True)), (30, GraphConfig())],
     ids=["exact_build", "hierarchy", "unaligned_rows"],
 )
-def test_unported_build_paths_raise(dim, cfg):
-    """Configurations the JAX package builds another way than the packed
-    SQ4 loop raise instead of falling back (d=30: 15-byte codes do not
-    tile the fused rows)."""
-    x = np.random.default_rng(0).normal(size=(600, dim)).astype(np.float32)
-    with pytest.raises(NotImplementedError):
-        build_graph(x, "euclidean", cfg)
+def test_other_build_paths_reach_jax_recall(dim, cfg):
+    """The build paths beside the packed SQ4 loop: the exact build (plain
+    wave loop), the hierarchy, and d=30 (15-byte codes do not tile the
+    fused rows: the unpacked fused loop with a 2-D table).  Each reaches the
+    JAX package's recall@10 on the same corpus within 0.01."""
+    ds = synthetic_dataset(n=800, dim=dim, n_queries=100, k=10, seed=4, device="cpu")
+    jcfg = JConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+    jg, jex = jbuild(ds.base, "euclidean", jcfg)
+    tg, tex = build_graph(ds.base, "euclidean", cfg, device="cpu")
+    assert tg.num_levels == jg.num_levels and tg.row_cap == jg.row_cap
+    for beam in (10, 16):
+        a = jsearch(jg, jex, jnp.asarray(ds.queries), top_k=10, beam_width=beam)
+        b = search(tg, tex, torch.as_tensor(ds.queries), top_k=10, beam_width=beam)
+        ra = recall_at_k(np.asarray(a.ids), ds.ground_truth, 10)
+        rb = recall_at_k(b.ids.numpy(), ds.ground_truth, 10)
+        assert abs(rb - ra) <= 0.01, (beam, ra, rb)
+
+
+@pytest.mark.parametrize("compression", [None, "sq4"], ids=["exact_build", "sq4_build"])
+def test_build_reports_only_its_own_phases(compression):
+    """``on_phase`` hears each phase of the build it was given to once, in
+    order; the hierarchy's sub-builds report nothing."""
+    x = np.random.default_rng(1).normal(size=(200, 8)).astype(np.float32)
+    phases = []
+    cfg = GraphConfig(max_degree=8, ef_construction=16, wave_size=64, build_compression=compression, add_hierarchy=True)
+    builder = GraphIndexBuilder(cfg,
+                                on_phase=lambda name, s: phases.append((name, s)))
+    graph, _ = builder.build(x, "euclidean", device="cpu")
+    assert graph.num_levels >= 2
+    assert [name for name, _ in phases] == ["provider prep", "wave loop", "cleanup", "hierarchy"]
+    assert all(s >= 0 for _, s in phases)

@@ -1,4 +1,4 @@
-"""K1 and K2 kernels against their plain twins on a CUDA device.
+"""K1, K2 and K5 kernels against their plain twins on a CUDA device.
 
 The kernels have no CPU mode: without a card these tests skip, and
 ``chip_smoke.py`` runs the same comparison at the main-path shapes.  This
@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from jvector_tpu_torch.ops.adc import adc_score
+from jvector_tpu_torch.ops.kernels import adc as tadc
 from jvector_tpu_torch.ops.kernels import packed_adj as tpa
 from jvector_tpu_torch.ops.kernels import scatter_rows as tsr
 
@@ -128,3 +130,45 @@ def test_k2_rejects_slot_width_not_multiple_of_16(cuda_device):
     with pytest.raises(ValueError, match="multiple of 16"):
         tsr.fused_update_inplace(_t(table, cuda_device), *dev_args)
     assert tsr.fused_update_inplace.launches == before
+
+
+def _k5_case(seed: int, q: int, c: int, m: int, k: int):
+    """LUTs ``[Q, M, K]`` and uint8 codes ``[Q, C, M]`` below K."""
+    rng = np.random.default_rng(seed)
+    luts = (rng.random((q, m, k)) * 50).astype(np.float32)
+    codes = rng.integers(0, k, (q, c, m)).astype(np.uint8)
+    return luts, codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "q, c, m, k",
+    [(4096, 56, 16, 256), (512, 112, 16, 256), (1, 70_000, 16, 256), (13, 19, 5, 32), (3, 40, 64, 256), (2, 9, 32, 16)],
+    ids=["serve", "build", "scan", "unaligned", "m_chunks", "k16"],
+)
+def test_k5_kernel_matches_twin_on_card(cuda_device, q, c, m, k):
+    """Only the order of the float32 sum differs (M = 64 stages the LUT in
+    two M-chunks at K = 256)."""
+    luts, codes = _k5_case(q + c, q, c, m, k)
+    tl, tc = _t(luts, cuda_device), _t(codes, cuda_device)
+    before = tadc.adc_score_kernel.launches
+    got = tadc.adc_score_kernel(tl, tc)
+    torch.cuda.synchronize()
+    assert tadc.adc_score_kernel.launches == before + 1
+    torch.testing.assert_close(got, adc_score(tl, tc), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k5_shared_table_and_rejects(cuda_device):
+    """A query stride of 0 shares one table (the cosine magnitude call);
+    codes that are not uint8 and K > 256 are refused before any launch."""
+    luts, codes = _k5_case(7, 1, 33, 16, 256)
+    shared = _t(luts, cuda_device).expand(5, -1, -1)
+    tc = _t(np.repeat(codes, 5, axis=0), cuda_device)
+    torch.testing.assert_close(tadc.adc_score_kernel(shared, tc), adc_score(shared, tc), rtol=1e-5, atol=1e-4)
+    before = tadc.adc_score_kernel.launches
+    with pytest.raises(ValueError, match="uint8"):
+        tadc.adc_score_kernel(shared, tc.to(torch.int32))
+    with pytest.raises(ValueError, match="256"):
+        tadc.adc_score_kernel(torch.zeros((5, 16, 512), device=cuda_device), tc)
+    assert tadc.adc_score_kernel.launches == before

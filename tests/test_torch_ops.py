@@ -72,11 +72,11 @@ def test_pairwise_scores_match(sim):
 def test_synthetic_dataset_and_recall_match():
     kw = dict(n=3000, dim=24, n_queries=40, k=10, n_clusters=16, seed=5)
     a = jds.synthetic_dataset(**kw)
-    b = tds.synthetic_dataset(**kw)
+    b = tds.synthetic_dataset(**kw, device="cpu")
     np.testing.assert_array_equal(a.base, b.base)
     np.testing.assert_array_equal(a.queries, b.queries)
     np.testing.assert_array_equal(a.ground_truth, b.ground_truth)
-    gt = tds.exact_ground_truth(b.base, b.queries, 10, block=700)
+    gt = tds.exact_ground_truth(b.base, b.queries, 10, block=700, device="cpu")
     np.testing.assert_array_equal(gt, a.ground_truth)
     ids = a.ground_truth.copy()
     ids[:, 3] = -1
@@ -86,7 +86,7 @@ def test_synthetic_dataset_and_recall_match():
 def _sq4_pair(d=32, n=600, seed=2):
     rng = np.random.default_rng(seed)
     data = rng.normal(size=(n, d)).astype(np.float32)
-    return data, jsq.ScalarQuantization4.compute(data), tsq.ScalarQuantization4.compute(data)
+    return data, jsq.ScalarQuantization4.compute(data), tsq.ScalarQuantization4.compute(data, device="cpu")
 
 
 @pytest.mark.parametrize("d", [32, 17])
@@ -281,3 +281,31 @@ def test_robust_prune_matches(algo, tied):
     other = tdiv.robust_prune(_t(ids), _t(sc), _t(sim), 16, alphas, algo="greedy")
     for a, b in zip(got, other):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize(
+    "entry", ["synthetic_dataset", "exact_ground_truth", "build_graph", "sq4_compute", "pq_compute", "convert"]
+)
+def test_entry_points_default_to_the_card(entry):
+    """Public entry points run on the card unless the caller asks for the
+    CPU: without a CUDA device they raise instead of falling back."""
+    from jvector_tpu_torch import convert
+    from jvector_tpu_torch.graph import build_graph
+    from jvector_tpu_torch.quantization import ProductQuantization
+
+    x = np.random.default_rng(0).normal(size=(300, 16)).astype(np.float32)
+    calls = {
+        "synthetic_dataset": lambda: tds.synthetic_dataset(n=300, dim=16, n_queries=4, k=5),
+        "exact_ground_truth": lambda: tds.exact_ground_truth(x, x[:4], 5),
+        "build_graph": lambda: build_graph(x, "euclidean"),
+        "sq4_compute": lambda: tsq.ScalarQuantization4.compute(x).scale,
+        "pq_compute": lambda: ProductQuantization.compute(x, m=4, clusters=16).codebooks,
+        "convert": lambda: convert.codes_from_numpy(np.zeros((3, 4), np.uint8)),
+    }
+    if torch.cuda.is_available():
+        out = calls[entry]()
+        if isinstance(out, torch.Tensor):
+            assert out.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            calls[entry]()
