@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's paths once on one GPU.
 
-    python3 chip_smoke.py              # both paths at 1M
-    python3 chip_smoke.py --n 50000    # a shorter rehearsal
+    python3 chip_smoke.py              # the LTM path at 1M, the earlier paths at 200k
+    python3 chip_smoke.py --n 50000    # a shorter rehearsal: every path at 50k
 
 Phases, each printing one JSON line:
 
@@ -10,14 +10,16 @@ Phases, each printing one JSON line:
    non-zero without a CUDA device;
 2. kernel build: compiles ``jvector_tpu_torch/csrc/*.cu``, one nvcc per
    source, all started together;
-3. kernel check: K1 (packed adjacency) and K2 (fused SQ4 code table)
-   against their plain PyTorch twins at the 1M build shapes (bit-exact,
-   ``torch.equal``), and K5 (PQ ADC) against its twin at the build, serve,
-   centroid-scan and an unaligned shape (``torch.allclose(rtol=1e-5,
+3. kernel check: K1 (packed adjacency), K3 (packed adjacency without the
+   w2 table) and K2 (fused SQ4 code table) against their plain PyTorch
+   twins at the 1M build shapes (bit-exact, ``torch.equal``), and K5 (PQ
+   ADC) against its twin at the build, serve, centroid-scan and an
+   unaligned shape (``torch.allclose(rtol=1e-5,
    atol=1e-4)``: only the order of the float32 sum differs); each with the
    median time of 20 runs from CUDA events, beside its bound (bytes over
    3.35 TB/s) and, for K5, the gather + sum PyTorch computes it with;
-4. SQ4 path (``--n``, PR 1's main path): ``build_graph`` at
+4. SQ4 path (the flagship path, at ``min(--n, 200,000)``: cut from 1M so
+   the script keeps its time with the LTM path added): ``build_graph`` at
    ``GraphConfig(max_degree=32, ef_construction=100)``, SQ4
    compute/encode/provider_for_graph, exact ground truth for 1024 queries,
    two-pass SQ4 + exact-rerank search in 4096-query waves at beam 100 and
@@ -28,23 +30,41 @@ Phases, each printing one JSON line:
    outDegree 32, efConstruction 100, overflow 1.2, hierarchy, PQ
    construction and search with M = d/8 = 16, K = 256, no centering, FP32
    rerank, overquery 1/2/5/10), first at n = 20,000 (512 queries) against
-   the JAX package's recall figures for that corpus, then at ``--n``
-   (1M): PQ compute + encode, ``GraphIndexBuilder(...).build(...,
-   provider=PQ)`` with the hierarchy (per-phase seconds from its
-   ``on_phase``), ADC first pass + exact rerank at beams 10/20/50/100, and the
+   the JAX package's recall figures for that corpus, then at
+   ``min(--n, 200,000)`` (cut from 1M, as the SQ4 path): PQ compute +
+   encode, ``GraphIndexBuilder(...).build(..., provider=PQ)`` with the
+   hierarchy (per-phase seconds from its ``on_phase``), ADC first pass + exact rerank at beams 10/20/50/100, and the
    fused PQ first pass at beam 100; QPS over >= 65,536 queries at beams 20
-   and 100 at 1M; an exact first pass at beam 100 over the same graph shows
+   and 100; an exact first pass at beam 100 over the same graph shows
    how far the PQ-scored graph itself bounds recall.  Fails if K5 was not
    launched in the build or in serving, if a result has fewer than 10 ids
    or non-finite scores, if the 20k recall differs from the JAX figures by
-   more than 0.03, or, at n = 1,000,000, if recall@10 at beam 100 is below
-   0.30 (the floor holds at 1M only: the reference itself reaches 0.26 at
-   50k).
+   more than 0.03, or, at n = 200,000, if recall@10 at beam 100 is below
+   0.30 (the reference reaches 0.4065 there and 0.26 at 50k, where no
+   floor holds);
+6. LTM path (``--n``, the main path): the larger-than-memory
+   stream build ``build_on_disk_ltm(compression="sq4",
+   GraphConfig(max_degree=32, ef_construction=100, add_hierarchy=True))``
+   of ``synthetic_dataset(n, dim=128, seed=0, n_clusters=n // 500)`` from
+   a chunk loader over the host array (the corpus is never uploaded whole)
+   into a temporary directory (~5.5 GB at 1M, deleted at the end), with
+   ``ltm._FUSED_BUILD_BUDGET = 0`` so the base layer takes the packed
+   regime (K3 once per wave); then ``HostGraphIndex.load`` serves 1024
+   queries with exact ground truth at beam 64, expand 4, with the default
+   host rerank; ``load_index(path).graph_to_device`` must give back the
+   returned graph exactly; and a PQ stream build at n = 20,000 served
+   through ``search_with_host_rerank`` is held to the JAX package's recall
+   at beam 100 (``experiments/torch_ltm_pq_cpu.py``).  Fails if the regime
+   is not packed, if K3's launches differ from the number of waves, if
+   host-served recall@10 is below 0.90, if the round trip differs, or if
+   the 20k PQ recall is more than 0.03 from the JAX figure.
 
-Kernel launch counts are read per path: set to 0 just before a path, read
-just after.  Float32 matrix products run in full float32: TF32 is switched
+The LTM path (6) runs right after the kernel check, then 4 and 5.  Kernel
+launch counts are read per path: set to 0 just before a path, read just
+after.  Float32 matrix products run in full float32: TF32 is switched
 off for matmuls and cuDNN.  The run uses one card (``CUDA_VISIBLE_DEVICES``
-is the first that ``CUDA_VISIBLE_DEVICES`` lists, else card 0).  Imports nothing of JAX.  The last line is the JSON
+is the first that ``CUDA_VISIBLE_DEVICES`` lists, else card 0).  Imports
+nothing of JAX.  The last line is the JSON
 ``{"ok": true, "device": {...}}``; any failure raises before it.
 """
 
@@ -79,7 +99,18 @@ OVERQUERY = (1, 2, 5, 10)  # default.yml topKOverquery 10: beam = rerank_k = 10 
 # seed=0), PQ M=16 K=256 uncentered, hierarchy, ADC first pass + FP32 rerank
 JAX_RECALL_20K = {10: 0.1521, 20: 0.2412, 50: 0.3828, 100: 0.5066}
 PARITY_SLACK = 0.03  # the port's k-means draws differ from jax.random's
-SANITY_FLOOR_1M = 0.30  # recall@10 at beam 100 at n = 1M: catches a broken search (no JAX figure at 1M)
+SANITY_FLOOR_200K = 0.30  # recall@10 at beam 100 at n = 200k: catches a broken search (the JAX package: 0.4065)
+EARLIER_N = 200_000  # the SQ4 and default-config paths' corpus, cut from 1M for the LTM path's time
+# LTM path: host-served recall floor (tests/test_ltm.py's), serving knobs,
+# and the JAX package's recall@10 of the PQ stream build on
+# synthetic_dataset(n=20_000, dim=128, n_queries=512, k=10, n_clusters=64,
+# seed=0), GraphConfig(max_degree=32, ef_construction=100), PQ M=16 K=256
+# trained in the build, search_with_host_rerank at beam = rerank_k
+# (experiments/torch_ltm_pq_cpu.py)
+HOST_RECALL_FLOOR = 0.90
+HOST_BEAM, HOST_EXPAND = 64, 4
+LTM_PQ_N = 20_000
+JAX_LTM_PQ_RECALL_20K = {10: 0.148046875, 20: 0.230078125, 50: 0.3650390625, 100: 0.493359375}
 
 
 def emit(obj: dict) -> None:
@@ -123,6 +154,7 @@ def phase_env() -> str:
         "nvidia_smi": smi,
         "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32},
     })
+    print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     return smi
 
 
@@ -238,6 +270,25 @@ def _k1_bytes(adj: torch.Tensor, args: tuple) -> int:
     return read + n_wave * 2 * a_adj[0].numel() * 4 + n_app * 3 * 4 + n_img * 2 * 128 * 4
 
 
+def _k3_args(k1_args: tuple) -> tuple:
+    """K3's arguments from a K1 case: the same streams without the w2 parts
+    (at the 1M LTM path: N/8 = 131,072, Wa = 64, P = 16,896, E = 512)."""
+    a_rows, a_adj, _, prow, sub, slot, p_id, p_sc, _, img, e_adj, _ = k1_args
+    return a_rows, a_adj, prow, sub, slot, p_id, p_sc, img, e_adj
+
+
+def _k3_bytes(adj: torch.Tensor, args: tuple) -> int:
+    """K3's least traffic: every stream read once, every written id / score
+    and image written once."""
+    n_pr = adj.shape[0]
+    a_rows, a_adj, prow, _, _, _, _, img, e_adj = args
+    read = sum(x.numel() * x.element_size() for x in args)
+    ok = (prow >= 0) & (prow < n_pr)
+    n_wave = int(((a_rows >= 0) & (a_rows < n_pr)).sum())
+    n_app, n_img = int((ok & (img < 0)).sum()), int((ok & (img >= 0)).sum())
+    return read + n_wave * a_adj[0].numel() * 4 + n_app * 2 * 4 + n_img * 128 * 4
+
+
 def _k2_bytes(table: torch.Tensor, args: tuple) -> int:
     """K2's least traffic: every stream read once, every written row image
     and slot written once."""
@@ -293,7 +344,12 @@ K5_SHAPES = {
 
 
 def phase_kernel_check() -> list[dict]:
-    from jvector_tpu_torch.ops.kernels.packed_adj import packed_adj_update_inplace, packed_adj_update_ref
+    from jvector_tpu_torch.ops.kernels.packed_adj import (
+        packed_adj_only_update_inplace,
+        packed_adj_only_update_ref,
+        packed_adj_update_inplace,
+        packed_adj_update_ref,
+    )
     from jvector_tpu_torch.ops.kernels.scatter_rows import fused_update_inplace, fused_update_ref
 
     dev = torch.device("cuda")
@@ -323,7 +379,30 @@ def phase_kernel_check() -> list[dict]:
                 "replaces": "jvector_tpu/ops/pallas/packed_adj.py:364",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None})
-    del adj, w2t, ka, kw, ra, rw, args
+    del w2t, ka, kw, ra, rw
+
+    args = _k3_args(args)
+    ka = adj.clone()
+    packed_adj_only_update_inplace(ka, *args)
+    ra = adj.clone()
+    packed_adj_only_update_ref(ra, *args)
+    torch.cuda.synchronize()
+    exact = torch.equal(ka, ra)
+    err = 0 if exact else int((ka.long() - ra.long()).abs().max())
+    changed = int((ka != adj).any(dim=(1, 2)).sum())
+    ms = median_ms(lambda: packed_adj_only_update_inplace(ka, *args))
+    plain_ms = median_ms(lambda: packed_adj_only_update_ref(ra, *args))
+    n_bytes = _k3_bytes(adj, args)
+    emit({"phase": "kernel_check", "kernel": "K3 packed_adj_only_update_inplace", "bit_exact": exact,
+          "physical_rows_changed": changed, "ms": ms, "plain_ms": plain_ms, "bytes": n_bytes})
+    if not exact or changed == 0:
+        raise SystemExit("K3 disagrees with its twin")
+    out.append({"name": "packed_adj_only_update_inplace", "route": "cuda",
+                "source": "jvector_tpu_torch/csrc/packed_adj.cu",
+                "replaces": "jvector_tpu/ops/pallas/packed_adj.py:501",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None})
+    del adj, ka, ra, args
 
     table, args = _k2_inputs(rng, dev)
     kt = table.clone()
@@ -368,9 +447,15 @@ def phase_kernel_check() -> list[dict]:
 
 
 def _counters() -> dict:
-    from jvector_tpu_torch.ops.kernels import adc_score_kernel, fused_update_inplace, packed_adj_update_inplace
+    from jvector_tpu_torch.ops.kernels import (
+        adc_score_kernel,
+        fused_update_inplace,
+        packed_adj_only_update_inplace,
+        packed_adj_update_inplace,
+    )
 
     return {"packed_adj_update_inplace": packed_adj_update_inplace,
+            "packed_adj_only_update_inplace": packed_adj_only_update_inplace,
             "fused_update_inplace": fused_update_inplace,
             "adc_score_kernel": adc_score_kernel}
 
@@ -569,38 +654,181 @@ def phase_default_config(n: int, dev: torch.device, n_queries: int, n_clusters: 
     return result
 
 
+def _ltm_pq_parity(dev: torch.device, tmp: str) -> dict:
+    """The PQ stream build at 20k, served through ``search_with_host_rerank``,
+    against the JAX package's recall on the same corpus and config."""
+    from jvector_tpu_torch.disk import HostVectorStore, build_on_disk_ltm
+    from jvector_tpu_torch.disk.host_tier import search_with_host_rerank
+    from jvector_tpu_torch.graph import GraphConfig
+    from jvector_tpu_torch.util.datasets import recall_at_k, synthetic_dataset
+
+    ds = synthetic_dataset(n=LTM_PQ_N, dim=128, n_queries=512, k=TOP_K, n_clusters=64, seed=0, device=dev)
+    reset_counts()
+    t0 = time.time()
+    graph, prov = build_on_disk_ltm(os.path.join(tmp, "pq.jvtpu"), ds.base, LTM_PQ_N, 128,
+                                    config=GraphConfig(max_degree=32, ef_construction=100), compression="pq",
+                                    seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    store, queries = HostVectorStore(vectors=ds.base), torch.as_tensor(ds.queries, device=dev)
+    recalls = {}
+    for beam in JAX_LTM_PQ_RECALL_20K:
+        res = search_with_host_rerank(graph, prov, store, queries, top_k=TOP_K, beam_width=beam)
+        recalls[beam] = recall_at_k(_check_result(res, 512, f"PQ LTM serve at beam {beam}"), ds.ground_truth, TOP_K)
+    return {"n": LTM_PQ_N, "build_seconds": build_s, "average_degree": graph.average_degree(),
+            "recall": {str(b): r for b, r in recalls.items()}, "jax_recall": JAX_LTM_PQ_RECALL_20K,
+            "port_minus_jax_100": recalls[100] - JAX_LTM_PQ_RECALL_20K[100], "launches": read_counts()}
+
+
+def phase_ltm_path(n: int, dev: torch.device) -> dict:
+    """The larger-than-memory path (see the module docstring); returns the
+    result line."""
+    import shutil
+    import tempfile
+
+    from jvector_tpu_torch.disk import HostGraphIndex, build_on_disk_ltm, load_index, ltm
+    from jvector_tpu_torch.graph import GraphConfig
+    from jvector_tpu_torch.graph.builder import _shuffled_wave_starts
+    from jvector_tpu_torch.util import native
+    from jvector_tpu_torch.util.datasets import recall_at_k, synthetic_dataset
+
+    cfg = GraphConfig(max_degree=32, ef_construction=100, add_hierarchy=True)
+    t0 = time.time()
+    ds = synthetic_dataset(n=n, dim=128, n_queries=GT_QUERIES, k=TOP_K, n_clusters=max(64, n // 500), seed=0,
+                           device=dev)
+    base = np.ascontiguousarray(ds.base, np.float32)  # host only: the build streams it
+    data_s = time.time() - t0
+    loads = [0]
+
+    def loader(a: int, b: int) -> np.ndarray:
+        loads[0] += 1
+        return base[a:b]
+
+    tmp = tempfile.mkdtemp(prefix="jvtpu_ltm_")
+    try:
+        path = os.path.join(tmp, "ltm.jvtpu")
+        free_gb = shutil.disk_usage(tmp).free / 2**30
+        ltm._FUSED_BUILD_BUDGET = 0  # the base layer takes the packed (K3) regime
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        phases = {}
+        reset_counts()
+        t0 = time.time()
+        graph, provider = build_on_disk_ltm(path, loader, n, 128, config=cfg, compression="sq4", seed=0, device=dev,
+                                            on_phase=lambda name, secs: phases.__setitem__(name, secs))
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        build_launches = read_counts()
+        build_peak = torch.cuda.max_memory_allocated() / 2**30
+        regime = next(k.split("/", 1)[1] for k in phases if k.startswith("waves/"))
+        n_waves = len(_shuffled_wave_starts(n, cfg.wave_size))
+        file_gb = os.path.getsize(path) / 2**30
+        # the returned graph, kept on the host for the round trip; the card is
+        # freed so the serve's peak is its own
+        want = [(layer.neighbors.cpu(), layer.counts.cpu()) for layer in graph.layers]
+        want_ids = [x.cpu() for x in graph.level_node_ids]
+        want_entry, levels = int(graph.entry_node), graph.num_levels
+        del graph, provider
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        hg = HostGraphIndex.load(path, device=dev)
+        kw = dict(top_k=TOP_K, beam_width=HOST_BEAM, expand=HOST_EXPAND)
+        hg.search(ds.queries[:64], **kw).ids.cpu()  # warm-up: uploads the upper levels
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = hg.search(ds.queries, **kw)
+        ids = _check_result(res, GT_QUERIES, "host-served search")
+        serve_s = time.time() - t0
+        serve_peak = torch.cuda.max_memory_allocated()
+        host_recall = recall_at_k(ids, ds.ground_truth, TOP_K)
+        serve_launches = read_counts()
+        host_bytes = sum(a.nbytes for a in (hg.neighbors, hg.fused_packed, hg.fused_w2, hg.codes_packed,
+                                            hg.node_const, hg.rerank_store.vectors))
+        hbm_mb = hg.hbm_bytes(GT_QUERIES, HOST_BEAM, HOST_EXPAND) / 2**20
+
+        back = load_index(path).graph_to_device(dev)
+        round_trip = (
+            back.num_levels == levels and int(back.entry_node) == want_entry
+            and all(torch.equal(b.neighbors.cpu(), w[0]) and torch.equal(b.counts.cpu(), w[1])
+                    for b, w in zip(back.layers, want))
+            and all(torch.equal(b.cpu(), w) for b, w in zip(back.level_node_ids, want_ids))
+        )
+        del back, hg
+        torch.cuda.empty_cache()
+
+        pq = _ltm_pq_parity(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    result = {
+        "phase": "ltm_path", "n": n, "dim": 128, "regime": regime, "n_waves": n_waves, "loader_calls": loads[0],
+        "data_seconds": data_s, "build_seconds": build_s, "build_phases": phases, "levels": levels,
+        "file_gb": file_gb, "tmp_free_gb": free_gb, "host_io": native.backend(),
+        "launches": {"build": build_launches, "serve": serve_launches, "pq_20k": pq.pop("launches")},
+        "build_peak_memory_gb": build_peak,
+        "serve": {"queries": GT_QUERIES, "beam_width": HOST_BEAM, "expand": HOST_EXPAND, "recall": host_recall,
+                  "qps": GT_QUERIES / serve_s, "seconds": serve_s,
+                  "peak_memory_mb": serve_peak / 2**20, "resident_before_mb": resident / 2**20,
+                  "hbm_bytes_mb": hbm_mb, "host_array_gb": host_bytes / 2**30},
+        "round_trip_exact": round_trip, "pq_ltm": pq,
+    }
+    emit(result)
+    if regime != "packed":
+        raise SystemExit(f"the LTM build took the {regime} regime, not packed")
+    if build_launches["packed_adj_only_update_inplace"] != n_waves:
+        raise SystemExit(f"K3 launched {build_launches['packed_adj_only_update_inplace']} times over {n_waves} waves")
+    if host_recall < HOST_RECALL_FLOOR:
+        raise SystemExit(f"host-served recall@10 {host_recall} < {HOST_RECALL_FLOOR}")
+    if not round_trip:
+        raise SystemExit("load_index(...).graph_to_device differs from the returned graph")
+    if abs(pq["port_minus_jax_100"]) > PARITY_SLACK:
+        raise SystemExit(f"PQ LTM recall at beam 100 is {pq['port_minus_jax_100']:+} from the JAX figure")
+    if result["launches"]["pq_20k"]["adc_score_kernel"] == 0:
+        raise SystemExit("the PQ stream build launched no K5")
+    return result
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--n", type=int, default=1_000_000, help="corpus size of the SQ4 and default-config paths")
+    p.add_argument("--n", type=int, default=1_000_000,
+                   help="corpus size of the LTM path; the earlier paths run at min(n, 200,000)")
     args = p.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    n_earlier = min(args.n, EARLIER_N)
 
     phase_env()
     phase_build()
     kernels = phase_kernel_check()
-    sq4 = phase_sq4_path(args.n, dev)
+    ltm = phase_ltm_path(args.n, dev)
+    sq4 = phase_sq4_path(n_earlier, dev)
     small = phase_default_config(20_000, dev, n_queries=512, n_clusters=64, gt_queries=512, timed_beams=())
     off = {b: small["recall"][str(b)] - JAX_RECALL_20K[b] for b in JAX_RECALL_20K}
     emit({"phase": "default_config_parity", "n": 20_000, "jax_recall": JAX_RECALL_20K,
           "port_minus_jax": off, "slack": PARITY_SLACK})
     if any(abs(d) > PARITY_SLACK for d in off.values()):
         raise SystemExit(f"20k default-config recall differs from the JAX figures by more than {PARITY_SLACK}: {off}")
-    big = phase_default_config(args.n, dev, n_queries=N_QUERIES, n_clusters=max(64, args.n // 500),
+    big = phase_default_config(n_earlier, dev, n_queries=N_QUERIES, n_clusters=max(64, n_earlier // 500),
                                gt_queries=GT_QUERIES, timed_beams=(20, 100))
-    if args.n == 1_000_000 and big["recall"]["100"] < SANITY_FLOOR_1M:
-        raise SystemExit(f"recall@10 at beam 100 is {big['recall']['100']} < {SANITY_FLOOR_1M}")
+    if n_earlier == EARLIER_N and big["recall"]["100"] < SANITY_FLOOR_200K:
+        raise SystemExit(f"recall@10 at beam 100 is {big['recall']['100']} < {SANITY_FLOOR_200K}")
 
-    paths = {"sq4_path": sq4["launches"], "default_config_20k": small["launches"],
-             "default_config": big["launches"]}
+    main_path = {"packed_adj_update_inplace": ("sq4_path",), "fused_update_inplace": ("sq4_path",),
+                 "packed_adj_only_update_inplace": ("ltm_build",),
+                 "adc_score_kernel": ("default_config_build", "default_config_serve")}
     for k in kernels:
         name = k["name"]
-        by_path = {"sq4_path": paths["sq4_path"][name],
-                   "default_config_build": paths["default_config"]["build"][name],
-                   "default_config_serve": paths["default_config"]["serve"][name]}
-        k["launches"] = by_path["sq4_path"] if name != "adc_score_kernel" else (
-            by_path["default_config_build"] + by_path["default_config_serve"])
+        by_path = {"sq4_path": sq4["launches"][name],
+                   "default_config_build": big["launches"]["build"][name],
+                   "default_config_serve": big["launches"]["serve"][name],
+                   "ltm_build": ltm["launches"]["build"][name],
+                   "ltm_serve": ltm["launches"]["serve"][name],
+                   "ltm_pq_20k": ltm["launches"]["pq_20k"][name]}
+        k["launches"] = sum(by_path[path] for path in main_path[name])
         k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

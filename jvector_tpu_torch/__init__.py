@@ -2,8 +2,9 @@
 
 The same layout and public names as the JAX package, for the slices ported
 so far: the SQ4 graph builds (packed and fused wave loops), the PQ-scored
-build, the HNSW hierarchy, and two-pass search with an SQ4 or PQ-ADC first
-pass and an exact rerank.  The
+build, the HNSW hierarchy, two-pass search with an SQ4 or PQ-ADC first
+pass and an exact rerank, the index container, the larger-than-memory
+stream build and bounded-memory host serving.  The
 port imports ``torch`` and never ``jax``; the JAX package stays the
 reference that the port's tests hold it against.
 
@@ -13,10 +14,19 @@ reference that the port's tests hold it against.
 - ``quantization``  — SQ4 (4-bit scalar quantization), PQ (k-means codebooks)
 - ``graph``         — graph data model, score providers, robust prune,
   query-wave beam search, wave builders, hierarchy
-- ``util``          — synthetic corpora, exact ground truth, recall
+- ``disk``          — the index container (shared with the JAX package), the
+  larger-than-memory stream build, host-tier rerank and host serving
+- ``util``          — synthetic corpora, exact ground truth, recall, host IO
 - ``convert``       — the JAX package's state (as numpy) -> the port's
 """
 
+from jvector_tpu_torch.disk import (
+    HostGraphIndex,
+    HostVectorStore,
+    build_on_disk_ltm,
+    load_index,
+    write_index,
+)
 from jvector_tpu_torch.graph import (
     GraphConfig,
     GraphIndex,
@@ -36,4 +46,9 @@ __all__ = [
     "search",
     "ScalarQuantization4",
     "ProductQuantization",
+    "build_on_disk_ltm",
+    "HostGraphIndex",
+    "HostVectorStore",
+    "load_index",
+    "write_index",
 ]

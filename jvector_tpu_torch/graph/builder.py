@@ -66,7 +66,7 @@ from jvector_tpu_torch.graph.score import (
     sq4_aug_rows,
 )
 from jvector_tpu_torch.graph.searcher import _repack_tail, search_layer
-from jvector_tpu_torch.ops.kernels.packed_adj import packed_adj_update_inplace
+from jvector_tpu_torch.ops.kernels.packed_adj import packed_adj_only_update_inplace, packed_adj_update_inplace
 from jvector_tpu_torch.ops.kernels.scatter_rows import fused_update_inplace
 from jvector_tpu_torch.ops.similarity import SimilarityFunction, normalize_score, pairwise_raw
 from jvector_tpu_torch.quantization.sq import ScalarQuantization4
@@ -125,6 +125,17 @@ class _EntrySeedSampler:
         valid = ids[ids >= 0]
         self.inserted[self.n_ins : self.n_ins + valid.size] = valid
         self.n_ins += valid.size
+
+    def state_dict(self) -> dict:
+        """Checkpointable state (larger-than-memory build resume): the RNG
+        and the inserted prefix."""
+        return {"rng_state": self.rng.bit_generator.state, "inserted": self.inserted[: self.n_ins].copy()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.rng.bit_generator.state = state["rng_state"]
+        ins = np.asarray(state["inserted"], np.int32)
+        self.inserted[: ins.size] = ins
+        self.n_ins = int(ins.size)
 
 
 def _sample_entry_seeds(
@@ -525,11 +536,15 @@ def _adj_rows(adj: torch.Tensor, ids: torch.Tensor, r: int):
     return rows[..., :r], rows[..., 64 : 64 + r].contiguous().view(torch.float32)
 
 
-def _intra_wave_scores(prune_provider: ExactScoreProvider, prune_qstate, wave_vectors):
-    """Intra-wave all-pairs scores ``[W, W]``: a direct product of the wave
-    vectors already at hand (no row gathers)."""
-    raw = pairwise_raw(prune_qstate, wave_vectors.float(), prune_provider.sim)
-    return normalize_score(raw, prune_provider.sim)
+def _intra_wave_scores(prune_provider, prune_qstate, wave_vectors, safe_wave):
+    """Intra-wave all-pairs scores ``[W, W]``.  The exact provider takes a
+    direct product of the wave vectors already at hand (no row gathers);
+    others score the wave's ids."""
+    if isinstance(prune_provider, ExactScoreProvider):
+        raw = pairwise_raw(prune_qstate, wave_vectors.float(), prune_provider.sim)
+        return normalize_score(raw, prune_provider.sim)
+    w = safe_wave.shape[0]
+    return prune_provider.score(prune_qstate, safe_wave[None, :].expand(w, w))
 
 
 def _wave_update_compute(
@@ -537,20 +552,26 @@ def _wave_update_compute(
     counts: torch.Tensor,  # [N] int32 (read only)
     entry_node: torch.Tensor,  # int32 scalar
     num_nodes: torch.Tensor,  # int32 scalar
-    prune_provider: ExactScoreProvider,  # rescore + prune, full precision
-    codes_packed: torch.Tensor,  # uint8 [N_cap, MP] the build SQ4 codes
-    node_const: torch.Tensor,  # float32 [N_cap] sim-appropriate per-node constant
+    prune_provider,  # rescore + prune (full precision, or the search's own)
+    codes_packed: torch.Tensor | None,  # uint8 [N_cap, MP] the build SQ4 codes (with_fused only)
+    node_const: torch.Tensor | None,  # float32 [N_cap] per-node constant (with_fused only)
     wave_ids: torch.Tensor,  # int32 [W], contiguous ascending, -1 padded
     wave_vectors: torch.Tensor,  # float32 [W, D]
     beam_ids: torch.Tensor,  # int32 [W, ef]
     beam_scores: torch.Tensor,  # float32 [W, ef]
     config: GraphConfig,
+    rescore: bool = True,  # re-rank the candidates with prune_provider (False:
+    #   prune on the beam's own scores, the larger-than-memory build)
+    with_fused: bool = True,  # also emit the w2 and fused-table write streams
 ):
     """Read + compute half of the packed wave update.
 
     Returns ``(counts, entry_node, num_nodes, adj_stream, fused_stream)``:
     the new counts (a fresh tensor), the bookkeeping scalars, and the write
     streams for :func:`_wave_apply_packed`, in the JAX package's layout.
+    With ``with_fused=False`` the adj stream omits the w2 parts,
+    ``(a_rows, a_adj, m_key, m_slot, m_id, m_sc, m_img, e_adj_img)`` for
+    :func:`_wave_apply_adj_only`, and ``fused_stream`` is None.
     """
     W = wave_ids.shape[0]
     dev = wave_ids.device
@@ -567,7 +588,7 @@ def _wave_update_compute(
 
     # -- 2. intra-wave candidates ----------------------------------------
     prune_qstate = prune_provider.prepare(wave_vectors)
-    wave_pair_scores = _intra_wave_scores(prune_provider, prune_qstate, wave_vectors)
+    wave_pair_scores = _intra_wave_scores(prune_provider, prune_qstate, wave_vectors, safe_wave)
     self_mask = torch.eye(W, dtype=torch.bool, device=dev)
     intra_valid = wave_valid[None, :] & wave_valid[:, None] & ~self_mask
     intra_scores = torch.where(intra_valid, wave_pair_scores, NEG_INF)
@@ -583,17 +604,28 @@ def _wave_update_compute(
     cand_ids = torch.cat([beam_ids, intra_top_ids], dim=1)
     cand_scores = torch.cat([beam_scores, intra_top_scores], dim=1)
     cand_ids, cand_scores = dedup_sorted_desc(cand_ids, cand_scores)
-    # the SQ4 beam scores only drove discovery: rescore exact.  One
-    # [W, C, D] row gather feeds the rescore AND the prune matrix
-    cand_va = prune_provider.vectors[torch.clamp(cand_ids, min=0).long()]
-    rescored = exact_score_rows(prune_qstate, cand_va, prune_provider.sim)
-    cand_scores = torch.where(cand_ids >= 0, rescored, NEG_INF)
+    valid = cand_ids >= 0
+    exact_rows = rescore and isinstance(prune_provider, ExactScoreProvider)
+    if exact_rows:
+        # the SQ4 beam scores only drove discovery: rescore exact.  One
+        # [W, C, D] row gather feeds the rescore AND the prune matrix
+        cand_va = prune_provider.vectors[torch.clamp(cand_ids, min=0).long()]
+        rescored = exact_score_rows(prune_qstate, cand_va, prune_provider.sim)
+        cand_scores = torch.where(valid, rescored, NEG_INF)
+    elif rescore:
+        rescored = prune_provider.score(prune_qstate, torch.clamp(cand_ids, min=0))
+        cand_scores = torch.where(valid, rescored, NEG_INF)
+    else:
+        cand_scores = torch.where(valid, cand_scores, NEG_INF)
     cand_scores = tie_break_scores(safe_wave, cand_ids, cand_scores)
     order = torch.argsort(-cand_scores, dim=1, stable=True)
     cand_ids = torch.gather(cand_ids, 1, order)
     cand_scores = torch.gather(cand_scores, 1, order)
-    cand_va = torch.gather(cand_va, 1, order[..., None].expand_as(cand_va))
-    simmat = tie_break_pairs(cand_ids, exact_pairwise_rows(cand_va, prune_provider.sim))
+    if exact_rows:
+        cand_va = torch.gather(cand_va, 1, order[..., None].expand_as(cand_va))
+        simmat = tie_break_pairs(cand_ids, exact_pairwise_rows(cand_va, prune_provider.sim))
+    else:
+        simmat = tie_break_pairs(cand_ids, _pairwise_from_provider(prune_provider, cand_ids))
     sel_ids, sel_scores, sel_count = robust_prune(
         cand_ids, cand_scores, simmat, M, config.alphas, algo=config.prune_algo
     )
@@ -613,7 +645,8 @@ def _wave_update_compute(
         f_w2 = torch.where(ok, node_const[safe], 0.0)
         return f_codes.reshape(ids_rows.shape[0], -1), f_w2
 
-    f_codes, f_w2 = fused_rows_for(row_ids)
+    if with_fused:
+        f_codes, f_w2 = fused_rows_for(row_ids)
 
     # -- 4b. backlinks: dedup against PRE-state + intra-wave overlay ------
     flat_t = sel_ids.reshape(-1)
@@ -691,7 +724,6 @@ def _wave_update_compute(
     p_row_scores = torch.cat([p_scores, torch.full((W, R_cap - M), NEG_INF, device=dev)], dim=1)
     er = torch.where(enforce_mask, enforce_rows, N_cap)
     cnt.index_put_((er.long(),), p_count)  # counts3
-    pf_codes, pf_w2 = fused_rows_for(p_row_ids)
 
     # -- assemble the write streams ---------------------------------------
     def adj_img(ids_img, scores_img):
@@ -712,7 +744,6 @@ def _wave_update_compute(
 
     a_rows = (safe_wave[0] >> 3) + torch.arange(W // 8, **i32)
     a_adj = adj_img(row_ids, row_scores).reshape(W // 8, 8, 128)
-    a_w2 = w2_img(f_w2).reshape(W // 8, 8, 128)
 
     # merged patch stream: appends (scalar patches) + enforce images,
     # sorted by logical row; appends into enforce rows are excluded (the
@@ -724,21 +755,9 @@ def _wave_update_compute(
     m_slot = torch.cat([scatter_slot, zero_w])
     m_id = torch.cat([s_sorted, zero_w])
     m_sc = torch.cat([sc_sorted.view(torch.int32), zero_w])
-    app_w2 = node_const[torch.clamp(s_sorted, min=0).long()].float().view(torch.int32)
-    m_w2 = torch.cat([app_w2, zero_w])
     m_img = torch.cat([torch.full((W * M,), -1, **i32), torch.arange(W, **i32)])
     m_order = torch.argsort(m_key, stable=True)
-    m_key, m_slot, m_id, m_sc, m_w2, m_img = (
-        x[m_order] for x in (m_key, m_slot, m_id, m_sc, m_w2, m_img)
-    )
     e_adj_img = adj_img(p_row_ids, p_row_scores)
-    e_w2_img = w2_img(pf_w2)
-
-    # fused-table streams
-    wave_in_er = (scatter_rows[:, None] == er[None, :]).any(dim=1)
-    f_rows_a = torch.where(wave_in_er, N_cap, scatter_rows)
-    f_p_rows = torch.where(p_ok, t_ok, -1)
-    f_src_codes = codes_packed[torch.clamp(s_sorted, min=0).long()]
 
     # -- bookkeeping ----------------------------------------------------
     n_new = wave_valid.sum(dtype=torch.int32)
@@ -746,6 +765,24 @@ def _wave_update_compute(
         entry_node >= 0, entry_node, torch.where(n_new > 0, safe_wave[0], -1)
     ).to(torch.int32)
     num2 = (num_nodes + n_new).to(torch.int32)
+    if not with_fused:
+        m_key, m_slot, m_id, m_sc, m_img = (x[m_order] for x in (m_key, m_slot, m_id, m_sc, m_img))
+        return cnt[:N_cap], entry2, num2, (a_rows, a_adj, m_key, m_slot, m_id, m_sc, m_img, e_adj_img), None
+
+    a_w2 = w2_img(f_w2).reshape(W // 8, 8, 128)
+    app_w2 = node_const[torch.clamp(s_sorted, min=0).long()].float().view(torch.int32)
+    m_w2 = torch.cat([app_w2, zero_w])
+    m_key, m_slot, m_id, m_sc, m_w2, m_img = (
+        x[m_order] for x in (m_key, m_slot, m_id, m_sc, m_w2, m_img)
+    )
+    pf_codes, pf_w2 = fused_rows_for(p_row_ids)
+    e_w2_img = w2_img(pf_w2)
+
+    # fused-table streams
+    wave_in_er = (scatter_rows[:, None] == er[None, :]).any(dim=1)
+    f_rows_a = torch.where(wave_in_er, N_cap, scatter_rows)
+    f_p_rows = torch.where(p_ok, t_ok, -1)
+    f_src_codes = codes_packed[torch.clamp(s_sorted, min=0).long()]
     return (
         cnt[:N_cap],
         entry2,
@@ -784,6 +821,14 @@ def _wave_apply_packed(
         er,
         pf_codes.reshape(w, t3, 128),
     )
+
+
+def _wave_apply_adj_only(adj: torch.Tensor, adj_stream: tuple) -> None:
+    """Write-only apply of the build without fused tables (the
+    larger-than-memory regime): K3 on the packed adjacency, in place."""
+    (a_rows, a_adj, m_key, m_slot, m_id, m_sc, m_img, e_adj_img) = adj_stream
+    prow = torch.where(m_key < adj.shape[0] * 8, m_key >> 3, _BIG)
+    packed_adj_only_update_inplace(adj, a_rows, a_adj, prow, m_key & 7, m_slot, m_id, m_sc, m_img, e_adj_img)
 
 
 def _packed_adj_eligible(cfg: GraphConfig, n_cap: int) -> bool:

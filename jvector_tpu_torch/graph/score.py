@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from jvector_tpu_torch.ops.adc import build_partial_sums, partial_squared_magnitudes
@@ -99,10 +100,13 @@ class ExactScoreProvider:
 class SQ4ScoreProvider:
     """Edge-fused 4-bit scalar-quantized scoring.
 
-    - ``codes_packed [N, MP]`` uint8 — entry / arbitrary-id scoring
+    - ``codes_packed [N, MP]`` uint8 — entry / arbitrary-id scoring, or
+      None to read code rows from ``codes_aug`` (the larger-than-memory
+      build keeps one device copy of the codes)
     - ``fused_packed`` uint8 — each node's neighbors' codes, slot-aligned
       with its adjacency row: ``[N, R*MP]`` when serving, or the build's
-      ``[N, T, 128]`` table (``T = R*MP/128``)
+      ``[N, T, 128]`` table (``T = R*MP/128``); ``[N, 0]`` (no fused
+      tables) makes the search score plain code rows
     - ``fused_w2`` — the neighbors' per-node constants: ``[N, R]`` float32
       when serving, or the build's packed ``[N/8, 8, 128]`` int32 table with
       float32 bits in lanes ``[0:R]``
@@ -114,7 +118,7 @@ class SQ4ScoreProvider:
     waves (see ``graph/builder.py``), where the JAX package donated them.
     """
 
-    codes_packed: torch.Tensor  # [N, MP] uint8
+    codes_packed: torch.Tensor | None  # [N, MP] uint8
     node_w2: torch.Tensor  # [N] float32
     node_norm2: torch.Tensor  # [N] float32
     fused_packed: torch.Tensor
@@ -130,7 +134,23 @@ class SQ4ScoreProvider:
 
     @property
     def mp(self) -> int:
-        return self.codes_packed.shape[1]
+        """Packed code bytes per node (with or without a codes_packed tensor)."""
+        if self.codes_packed is not None:
+            return self.codes_packed.shape[1]
+        return self.codes_aug.shape[1] - 4
+
+    def _code_rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """Packed code rows for arbitrary ids (from codes_aug if need be)."""
+        if self.codes_packed is not None:
+            return self.codes_packed[ids]
+        return self.codes_aug[ids][..., : self.mp]
+
+    def _codes_array(self) -> torch.Tensor:
+        """The whole ``[N, MP]`` codes tensor (a slice copy when aug-backed:
+        for saves, never per wave)."""
+        if self.codes_packed is not None:
+            return self.codes_packed
+        return self.codes_aug[:, : self.mp].contiguous()
 
     @property
     def padded_dim(self) -> int:
@@ -173,7 +193,7 @@ class SQ4ScoreProvider:
             k = unpack_nibble_rows_grouped(rows[..., :mp]).float()
             const = rows[..., mp : mp + 4].contiguous().view(torch.float32)[..., 0]
             return self._finish(_row_dots(u, k), c0, const, const)
-        k = unpack_nibble_rows_grouped(self.codes_packed[ids]).float()
+        k = unpack_nibble_rows_grouped(self._code_rows(ids)).float()
         return self._finish(_row_dots(u, k), c0, self.node_w2[ids], self.node_norm2[ids])
 
     def score_edges(self, qstate, node_ids: torch.Tensor) -> torch.Tensor:
@@ -197,7 +217,7 @@ class SQ4ScoreProvider:
         return self._finish(_row_dots(u, k), c0, w2, w2)
 
     def decode(self, ids: torch.Tensor) -> torch.Tensor:
-        k = unpack_nibble_rows(self.codes_packed[ids.long()]).float()
+        k = unpack_nibble_rows(self._code_rows(ids.long())).float()
         return k * self.scale + self.offset
 
     def pairwise(self, ids_a: torch.Tensor, ids_b: torch.Tensor) -> torch.Tensor:
@@ -234,6 +254,22 @@ def build_fused_sq4(
         out[start : start + blk.shape[0]] = gathered.reshape(blk.shape[0], -1)
         out_w2[start : start + blk.shape[0]] = torch.where(ok, node_w2[safe], 0.0)
     return out, out_w2
+
+
+def build_fused_sq4_host(
+    neighbors: np.ndarray,  # [B, R] int32, -1 padded
+    codes_packed: np.ndarray,  # [N, MP] uint8
+    node_w2: np.ndarray,  # [N] float32
+) -> tuple[np.ndarray, np.ndarray]:
+    """Numpy twin of :func:`build_fused_sq4` for saves from host memory:
+    the larger-than-memory save streams the fused layout into the file,
+    a pure gather of host-resident codes."""
+    safe = np.maximum(neighbors, 0)
+    ok = neighbors >= 0
+    gathered = codes_packed[safe]  # [B, R, MP]
+    gathered[~ok] = 0
+    w2 = np.where(ok, node_w2[safe], np.float32(0.0)).astype(np.float32)
+    return gathered.reshape(neighbors.shape[0], -1), w2
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,6 +5,8 @@ its ``launches`` attribute."""
 
 from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel
 from jvector_tpu_torch.ops.kernels.packed_adj import (
+    packed_adj_only_update_inplace,
+    packed_adj_only_update_ref,
     packed_adj_update_inplace,
     packed_adj_update_ref,
 )
@@ -14,6 +16,8 @@ __all__ = [
     "adc_score_kernel",
     "packed_adj_update_inplace",
     "packed_adj_update_ref",
+    "packed_adj_only_update_inplace",
+    "packed_adj_only_update_ref",
     "fused_update_inplace",
     "fused_update_ref",
 ]

@@ -1,4 +1,4 @@
-"""K1: in-place packed-adjacency wave update (counterpart of
+"""K1 and K3: in-place packed-adjacency wave updates (counterpart of
 ``jvector_tpu/ops/pallas/packed_adj.py``).
 
 Layout: ``adj`` is ``[N/8, 8, 128]`` int32 with neighbor ids in lanes
@@ -6,9 +6,12 @@ Layout: ``adj`` is ``[N/8, 8, 128]`` int32 with neighbor ids in lanes
 same shape with the neighbors' per-node constants (float32 bits) in lanes
 ``[0:R]``.
 
-:func:`packed_adj_update_inplace` launches the CUDA kernel in
+:func:`packed_adj_update_inplace` (K1) launches the CUDA kernel in
 ``csrc/packed_adj.cu`` for CUDA tensors and runs the plain twin
-:func:`packed_adj_update_ref` for CPU tensors.  Both update the tables in
+:func:`packed_adj_update_ref` for CPU tensors; :func:`packed_adj_only_update_inplace`
+(K3, the larger-than-memory build) and its twin
+:func:`packed_adj_only_update_ref` do the same without the w2 table.  All
+update the tables in
 place (the JAX package donated them) with the same phase semantics: wave
 images, then the row-sorted patch stream, rows outside ``[0, n_prows)``
 dropped.  Callers keep appends out of enforce rows and give each
@@ -26,10 +29,12 @@ from jvector_tpu_torch.ops.kernels import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
 _ARGTYPES += [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+_ONLY_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+_ONLY_ARGTYPES += [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def _lib() -> ctypes.CDLL:
-    return _build.load("packed_adj.cu", {"jv_packed_adj_update": _ARGTYPES})
+    return _build.load("packed_adj.cu", {"jv_packed_adj_update": _ARGTYPES, "jv_packed_adj_only_update": _ONLY_ARGTYPES})
 
 
 def packed_adj_update_ref(
@@ -121,3 +126,67 @@ def packed_adj_update_inplace(
 
 
 packed_adj_update_inplace.launches = 0  # kernel launches (CUDA calls only)
+
+
+def packed_adj_only_update_ref(adj, a_rows, a_adj, p_prow, p_sub, p_slot, p_id, p_sc, p_img, e_adj):
+    """Plain PyTorch twin of K3, in place; follows the JAX package's
+    ``packed_adj_only_update_ref``."""
+    n_pr = adj.shape[0]
+    a_ok = (a_rows >= 0) & (a_rows < n_pr)
+    adj.index_copy_(0, a_rows[a_ok].long(), a_adj[a_ok])
+    ok = (p_prow >= 0) & (p_prow < n_pr)
+    app = ok & (p_img < 0)
+    r, s, slot = p_prow[app].long(), p_sub[app].long(), p_slot[app].long()
+    adj.index_put_((r, s, slot), p_id[app])
+    adj.index_put_((r, s, slot + 64), p_sc[app])
+    im = ok & (p_img >= 0)
+    adj.index_put_((p_prow[im].long(), p_sub[im].long()), e_adj[p_img[im].long()])
+    return adj
+
+
+def packed_adj_only_update_inplace(
+    adj: torch.Tensor,  # [N/8, 8, 128] int32, updated in place
+    a_rows: torch.Tensor,  # [Wa] int32 physical rows of the wave images
+    a_adj: torch.Tensor,  # [Wa, 8, 128] int32
+    p_prow: torch.Tensor,  # [P] int32 physical rows, SORTED (out of range = drop)
+    p_sub: torch.Tensor,  # [P] int32 sublane 0..7
+    p_slot: torch.Tensor,  # [P] int32 lane of the id (score at 64+slot)
+    p_id: torch.Tensor,  # [P] int32
+    p_sc: torch.Tensor,  # [P] int32 float32 score bits
+    p_img: torch.Tensor,  # [P] int32 enforce-image index, or -1 for an append
+    e_adj: torch.Tensor,  # [E, 128] int32 enforce sublane images
+) -> torch.Tensor:
+    """K3: K1's contract without the w2 table (the larger-than-memory build's
+    wave apply); returns ``adj``.  CUDA tensors launch the kernel (and count
+    one launch); CPU tensors run the twin.  Any other device raises."""
+    if adj.device.type == "cpu":
+        return packed_adj_only_update_ref(adj, a_rows, a_adj, p_prow, p_sub, p_slot, p_id, p_sc, p_img, e_adj)
+    if adj.device.type != "cuda":
+        raise ValueError(f"packed_adj_only_update_inplace: unsupported device {adj.device}")
+    if adj.dim() != 3 or adj.shape[1:] != (8, 128):
+        raise ValueError(f"adj must be [N/8, 8, 128], got {tuple(adj.shape)}")
+    n_a, p, n_e = a_rows.shape[0], p_prow.shape[0], e_adj.shape[0]
+    if a_adj.shape != (n_a, 8, 128):
+        raise ValueError("a_adj must be [Wa, 8, 128]")
+    if e_adj.shape != (n_e, 128):
+        raise ValueError("e_adj must be [E, 128]")
+    streams = dict(p_sub=p_sub, p_slot=p_slot, p_id=p_id, p_sc=p_sc, p_img=p_img)
+    for name, t in streams.items():
+        if t.shape != (p,):
+            raise ValueError(f"{name} must be [P={p}], got {tuple(t.shape)}")
+    dev = adj.device
+    for name, t in {**dict(adj=adj, a_rows=a_rows, a_adj=a_adj, p_prow=p_prow, e_adj=e_adj), **streams}.items():
+        _check_cuda(name, t, torch.int32, dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.jv_packed_adj_only_update(
+            adj.data_ptr(), adj.shape[0], a_rows.data_ptr(), a_adj.data_ptr(), n_a,
+            p_prow.data_ptr(), p_sub.data_ptr(), p_slot.data_ptr(), p_id.data_ptr(), p_sc.data_ptr(),
+            p_img.data_ptr(), p, e_adj.data_ptr(), n_e, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "packed_adj_only_update_inplace")
+    packed_adj_only_update_inplace.launches += 1
+    return adj
+
+
+packed_adj_only_update_inplace.launches = 0  # kernel launches (CUDA calls only)

@@ -1,4 +1,5 @@
-"""K1 (packed adjacency) and K2 (fused code table) in-place updates.
+"""K1 (packed adjacency), K3 (packed adjacency without w2) and K2 (fused
+code table) in-place updates.
 
 On the CPU the port's wrappers run their plain twins; these must equal the
 JAX package's references and its Pallas kernels in interpret mode, byte for
@@ -15,7 +16,7 @@ from jvector_tpu.ops.pallas import packed_adj as jpa
 from jvector_tpu.ops.pallas import scatter_rows as jsr
 from jvector_tpu_torch.ops.kernels import packed_adj as tpa
 from jvector_tpu_torch.ops.kernels import scatter_rows as tsr
-from test_torch_kernels_cuda import _k1_straddling_case, _k2_case, _t
+from test_torch_kernels_cuda import _k1_straddling_case, _k2_case, _k3_args, _t
 
 
 def test_k1_twin_matches_jax_reference_and_interpret_kernel():
@@ -31,6 +32,19 @@ def test_k1_twin_matches_jax_reference_and_interpret_kernel():
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ka))
     np.testing.assert_array_equal(tw.numpy(), np.asarray(kw))
     assert tpa.packed_adj_update_inplace.launches == 0  # the twin is not a launch
+
+
+def test_k3_twin_matches_jax_reference_and_interpret_kernel():
+    adj, _, args = _k1_straddling_case(0)
+    args = _k3_args(args)
+    ta = _t(adj)
+    tpa.packed_adj_only_update_inplace(ta, *(_t(a) for a in args))  # CPU -> twin
+    ref = jpa.packed_adj_only_update_ref(jnp.asarray(adj), *map(jnp.asarray, args))
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ref))
+    kern = jpa.packed_adj_only_update_inplace(jnp.asarray(adj), *map(jnp.asarray, args), interpret=True)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(kern))
+    assert (ta.numpy() != adj).any()
+    assert tpa.packed_adj_only_update_inplace.launches == 0  # the twin is not a launch
 
 
 def test_k2_twin_matches_jax_reference_and_interpret_kernel():

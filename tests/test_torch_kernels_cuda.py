@@ -1,4 +1,4 @@
-"""K1, K2 and K5 kernels against their plain twins on a CUDA device.
+"""K1, K2, K3 and K5 kernels against their plain twins on a CUDA device.
 
 The kernels have no CPU mode: without a card these tests skip, and
 ``chip_smoke.py`` runs the same comparison at the main-path shapes.  This
@@ -70,6 +70,12 @@ def _k1_straddling_case(seed):
     raise AssertionError("no seed gives a chunk-straddling run")
 
 
+def _k3_args(k1_args: tuple) -> tuple:
+    """K3's arguments from a K1 case: the same streams without the w2 parts."""
+    a_rows, a_adj, _, prow, sub, slot, p_id, p_sc, _, img, e_adj, _ = k1_args
+    return a_rows, a_adj, prow, sub, slot, p_id, p_sc, img, e_adj
+
+
 def _k2_case(seed: int, n: int = 48, t3: int = 8, mp: int = 64):
     """A K2 wave: wave rows (one dropped), row-sorted slot patches in runs
     (some on wave rows, a dropped tail), and enforce rows that also hit a
@@ -109,6 +115,31 @@ def test_k1_kernel_matches_twin_on_card(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(ka, ra) and torch.equal(kw, rw)
     assert tpa.packed_adj_update_inplace.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_k3_kernel_matches_twin_on_card(cuda_device):
+    adj, _, args = _k1_straddling_case(3)
+    dev_args = [_t(a, cuda_device) for a in _k3_args(args)]
+    ka = _t(adj, cuda_device)
+    before = tpa.packed_adj_only_update_inplace.launches
+    tpa.packed_adj_only_update_inplace(ka, *dev_args)
+    ra = tpa.packed_adj_only_update_ref(_t(adj, cuda_device), *dev_args)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, ra) and not torch.equal(ka, _t(adj, cuda_device))
+    assert tpa.packed_adj_only_update_inplace.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_k3_rejects_bad_shapes_before_launch(cuda_device):
+    adj, _, args = _k1_straddling_case(3)
+    dev_args = [_t(a, cuda_device) for a in _k3_args(args)]
+    before = tpa.packed_adj_only_update_inplace.launches
+    with pytest.raises(ValueError, match="e_adj"):
+        tpa.packed_adj_only_update_inplace(_t(adj, cuda_device), *dev_args[:-1], dev_args[-1][:, :64])
+    with pytest.raises(ValueError, match="int32"):
+        tpa.packed_adj_only_update_inplace(_t(adj, cuda_device), *dev_args[:-1], dev_args[-1].float())
+    assert tpa.packed_adj_only_update_inplace.launches == before
 
 
 @pytest.mark.cuda

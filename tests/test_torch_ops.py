@@ -51,9 +51,13 @@ def _bits(x):
 
 
 def test_import_without_jax():
-    code = "import sys, jvector_tpu_torch, jvector_tpu_torch.convert; print('jax' in sys.modules)"
+    code = (
+        "import sys, jvector_tpu_torch, jvector_tpu_torch.convert, jvector_tpu_torch.disk.ltm, "
+        "jvector_tpu_torch.disk.host_graph, jvector_tpu_torch.util.native; "
+        "print('jax' in sys.modules, any(m.split('.')[0] == 'jvector_tpu' for m in sys.modules))"
+    )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True)
-    assert out.stdout.strip() == "False"
+    assert out.stdout.strip() == "False False"
 
 
 @pytest.mark.parametrize("sim", SIMS)
