@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's paths once on one GPU.
 
-    python3 chip_smoke.py              # the LTM path at 1M, the earlier paths at 200k
+    python3 chip_smoke.py              # mips-96d at 1M, the other paths at 200k
     python3 chip_smoke.py --n 50000    # a shorter rehearsal: every path at 50k
 
 Phases, each printing one JSON line:
@@ -12,26 +12,69 @@ Phases, each printing one JSON line:
    source, all started together;
 3. kernel check: K1 (packed adjacency), K3 (packed adjacency without the
    w2 table) and K2 (fused SQ4 code table) against their plain PyTorch
-   twins at the 1M build shapes (bit-exact, ``torch.equal``), and K5 (PQ
-   ADC) against its twin at the build, serve, centroid-scan and an
-   unaligned shape (``torch.allclose(rtol=1e-5,
+   twins at the 1M build shapes (bit-exact, ``torch.equal``); K4a (row
+   scatter into the ``[1,048,576, 24, 128]`` uint8 fused table of the 1M
+   mips-96d build, B = 17,408 rows with dropped and duplicate-identical
+   rows), K4b (the same scatter on that table viewed 2-D, and on a
+   ``[1,048,576, 64]`` float32 table) and K7 (slot scatter on the float32
+   table, and 48-byte slots on the 2-D uint8 view) against their twins
+   (bit-exact); and K5 (PQ ADC) against its twin at the build, serve,
+   centroid-scan and an unaligned shape (``torch.allclose(rtol=1e-5,
    atol=1e-4)``: only the order of the float32 sum differs); each with the
    median time of 20 runs from CUDA events, beside its bound (bytes over
-   3.35 TB/s) and, for K5, the gather + sum PyTorch computes it with;
-4. SQ4 path (the flagship path, at ``min(--n, 200,000)``: cut from 1M so
-   the script keeps its time with the LTM path added): ``build_graph`` at
-   ``GraphConfig(max_degree=32, ef_construction=100)``, SQ4
-   compute/encode/provider_for_graph, exact ground truth for 1024 queries,
-   two-pass SQ4 + exact-rerank search in 4096-query waves at beam 100 and
-   at the smallest beam of bench.py's list that clears recall 0.955.
-   Fails if recall@10 at beam 100 is below 0.95 or if K1's or K2's launch
-   count over the build differs from the number of build waves;
-5. default configuration (upstream JVector's ``yaml-configs/default.yml``:
+   3.35 TB/s) and the PyTorch call that computes the same function, where
+   one does (K4a / K4b: ``index_copy_``, K7: ``index_put_``, K5: gather +
+   sum);
+4. robustness (``bench.py``'s robustness corpora through
+   ``jvector_tpu_torch.bench.headline``): **mips-96d at ``--n``** (the main
+   path, at bench.py's size): ``synthetic_dataset(n, dim=96,
+   sim="dot_product", n_clusters=max(64, n // 500), seed=4)``,
+   ``build_graph(..., "dot_product", GraphConfig(max_degree=32,
+   ef_construction=100))``, whose SQ4 build takes the fused loop's
+   whole-row fallback on ``[N, 24, 128]`` tables (K4a once per wave), SQ4
+   ``provider_for_graph`` and bench's ``measure`` at floor 0.95 over 4096
+   queries (recall over 1024); then **clustered-adversarial at
+   ``min(--n, 200,000)``** the same way, held at n = 200,000 to the JAX
+   package's recall@10 at beams 100 and 200
+   (``experiments/torch_robustness_cpu.py``).
+   Fails if no beam <= 200 reaches recall@10 0.95 on mips-96d, if K4a's
+   launches over that build differ from the number of waves or K1 or K2
+   launched there, or if the adversarial recall is more than 0.03 from
+   the JAX figure;
+5. LTM path (``min(--n, 200,000)``): the larger-than-memory
+   stream build ``build_on_disk_ltm(compression="sq4",
+   GraphConfig(max_degree=32, ef_construction=100, add_hierarchy=True))``
+   of ``synthetic_dataset(n, dim=128, seed=0, n_clusters=n // 500)`` from
+   a chunk loader over the host array (the corpus is never uploaded whole)
+   into a temporary directory (deleted at the end),
+   with ``ltm._FUSED_BUILD_BUDGET = 0`` so the base layer takes the packed
+   regime (K3 once per wave) and ``ltm._FUSED_SERVE_BUDGET = 0`` so the
+   save takes the larger-than-memory branch (L0 pulled to the host, the
+   fused layout streamed into the file from numpy, a provider without
+   fused tables), as a corpus beyond those budgets does (both restored
+   afterwards); then ``HostGraphIndex.load`` serves 1024
+   queries with exact ground truth at beam 64, expand 4, with the default
+   host rerank; ``load_index(path).graph_to_device`` must give back the
+   returned graph exactly; and a PQ stream build at n = 20,000 served
+   through ``search_with_host_rerank`` is held to the JAX package's recall
+   at beam 100 (``experiments/torch_ltm_pq_cpu.py``).  Fails if the regime
+   is not packed or the save not the host-streamed one, if K3's launches differ from the number of waves, if
+   host-served recall@10 is below 0.90, if the round trip differs, or if
+   the 20k PQ recall is more than 0.03 from the JAX figure;
+6. SQ4 path (the flagship path, at ``min(--n, 200,000)``):
+   ``build_graph`` at ``GraphConfig(max_degree=32, ef_construction=100)``,
+   SQ4 compute/encode/provider_for_graph, exact ground truth for 1024
+   queries, two-pass SQ4 + exact-rerank search in 4096-query waves at beam
+   100 and at the smallest beam of bench.py's list that clears recall
+   0.955.  Fails if recall@10 at beam 100 is below 0.95 or if K1's or
+   K2's launch count over the build differs from the number of build
+   waves;
+7. default configuration (upstream JVector's ``yaml-configs/default.yml``:
    outDegree 32, efConstruction 100, overflow 1.2, hierarchy, PQ
    construction and search with M = d/8 = 16, K = 256, no centering, FP32
    rerank, overquery 1/2/5/10), first at n = 20,000 (512 queries) against
    the JAX package's recall figures for that corpus, then at
-   ``min(--n, 200,000)`` (cut from 1M, as the SQ4 path): PQ compute +
+   ``min(--n, 200,000)``: PQ compute +
    encode, ``GraphIndexBuilder(...).build(..., provider=PQ)`` with the
    hierarchy (per-phase seconds from its ``on_phase``), ADC first pass + exact rerank at beams 10/20/50/100, and the
    fused PQ first pass at beam 100; QPS over >= 65,536 queries at beams 20
@@ -41,25 +84,9 @@ Phases, each printing one JSON line:
    or non-finite scores, if the 20k recall differs from the JAX figures by
    more than 0.03, or, at n = 200,000, if recall@10 at beam 100 is below
    0.30 (the reference reaches 0.4065 there and 0.26 at 50k, where no
-   floor holds);
-6. LTM path (``--n``, the main path): the larger-than-memory
-   stream build ``build_on_disk_ltm(compression="sq4",
-   GraphConfig(max_degree=32, ef_construction=100, add_hierarchy=True))``
-   of ``synthetic_dataset(n, dim=128, seed=0, n_clusters=n // 500)`` from
-   a chunk loader over the host array (the corpus is never uploaded whole)
-   into a temporary directory (~5.5 GB at 1M, deleted at the end), with
-   ``ltm._FUSED_BUILD_BUDGET = 0`` so the base layer takes the packed
-   regime (K3 once per wave); then ``HostGraphIndex.load`` serves 1024
-   queries with exact ground truth at beam 64, expand 4, with the default
-   host rerank; ``load_index(path).graph_to_device`` must give back the
-   returned graph exactly; and a PQ stream build at n = 20,000 served
-   through ``search_with_host_rerank`` is held to the JAX package's recall
-   at beam 100 (``experiments/torch_ltm_pq_cpu.py``).  Fails if the regime
-   is not packed, if K3's launches differ from the number of waves, if
-   host-served recall@10 is below 0.90, if the round trip differs, or if
-   the 20k PQ recall is more than 0.03 from the JAX figure.
+   floor holds).
 
-The LTM path (6) runs right after the kernel check, then 4 and 5.  Kernel
+Phases run in this order.  Kernel
 launch counts are read per path: set to 0 just before a path, read just
 after.  Float32 matrix products run in full float32: TF32 is switched
 off for matmuls and cuDNN.  The run uses one card (``CUDA_VISIBLE_DEVICES``
@@ -100,7 +127,15 @@ OVERQUERY = (1, 2, 5, 10)  # default.yml topKOverquery 10: beam = rerank_k = 10 
 JAX_RECALL_20K = {10: 0.1521, 20: 0.2412, 50: 0.3828, 100: 0.5066}
 PARITY_SLACK = 0.03  # the port's k-means draws differ from jax.random's
 SANITY_FLOOR_200K = 0.30  # recall@10 at beam 100 at n = 200k: catches a broken search (the JAX package: 0.4065)
-EARLIER_N = 200_000  # the SQ4 and default-config paths' corpus, cut from 1M for the LTM path's time
+EARLIER_N = 200_000  # every path but mips-96d, cut from 1M for the script's time
+ROBUST_QUERIES = 4096  # bench.py's robustness queries: min(--queries, 4096), one wave
+# recall@10 of the JAX package at beams 100 and 200 on bench.py's
+# clustered_adversarial(200_000, 128, 4096) (seed 7): build_graph at
+# GraphConfig(max_degree=32, ef_construction=100) (SQ4 build scoring), SQ4
+# first pass + exact rerank at rerank_k = beam, repack cut 1.6 x beam, over
+# the first 1024 queries (experiments/torch_robustness_cpu.py)
+ADVERSARIAL_N = 200_000
+JAX_ADVERSARIAL_RECALL_200K = {100: 0.9568359375, 200: 0.9861328125}
 # LTM path: host-served recall floor (tests/test_ltm.py's), serving knobs,
 # and the JAX package's recall@10 of the PQ stream build on
 # synthetic_dataset(n=20_000, dim=128, n_queries=512, k=10, n_clusters=64,
@@ -165,8 +200,8 @@ def phase_build() -> None:
     sources = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, sources))
-    for mod in (packed_adj, scatter_rows, adc):
-        mod._lib()
+    for load in (packed_adj._lib, scatter_rows._lib, scatter_rows._scatter_lib, adc._lib):
+        load()
     emit({"phase": "kernel_build", "sources": sources, "seconds": time.time() - t0})
 
 
@@ -300,6 +335,152 @@ def _k2_bytes(table: torch.Tensor, args: tuple) -> int:
         return int(((r >= 0) & (r < n)).sum())
 
     return read + (valid(wave_rows) + valid(er_rows)) * row + valid(patch_rows) * patch_src.shape[1]
+
+
+def _scatter_rows_case(rng: np.random.Generator, dev, row_shape: tuple, dtype, n_cap: int = 1_048_576):
+    """K4a / K4b at the 1M mips-96d build shapes: a ``[1,048,576, *row_shape]``
+    table and one wave's B = W + W*M + W = 17,408 row images (W = 512,
+    M = 32): unique rows, 40 dropped (-1 and N), and the last 16 repeating
+    earlier rows with identical images (duplicate enforce rows)."""
+    b = 512 + 512 * 32 + 512
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+
+    def rnd(*shape):
+        if dtype == torch.float32:
+            return torch.randn(shape, generator=gen, device=dev)
+        return torch.randint(0, 256, shape, generator=gen, dtype=dtype, device=dev)
+
+    idx = rng.choice(n_cap, b, replace=False).astype(np.int32)
+    idx[rng.choice(b - 32, 40, replace=False) + 16] = np.where(np.arange(40) % 2, -1, n_cap)
+    idx[-16:] = idx[:16]
+    payload = rnd(b, *row_shape)
+    payload[-16:] = payload[:16]
+    return rnd(n_cap, *row_shape), (torch.as_tensor(idx, device=dev), payload)
+
+
+def _scatter_slots_case(rng: np.random.Generator, dev, table: torch.Tensor, kp: int):
+    """K7 at the 1M build's backlink shape: W*M = 16,384 slot writes in runs
+    of distinct slots per row (several per row), 5% dropped rows; slot s of
+    a row sits at element offset ``s * kp``."""
+    n_cap, gen = table.shape[0], torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    rows, slots = [], []
+    for r in rng.choice(n_cap, 6000, replace=False):
+        k = int(rng.integers(1, 7))
+        rows += [r] * k
+        slots += list(rng.permutation(table.shape[1] // kp)[:k])
+    p = 512 * 32
+    rows, slots = np.array(rows[:p], np.int32), np.array(slots[:p], np.int32)
+    rows[rng.random(p) < 0.05] = -1
+    if table.dtype == torch.float32:
+        payload = torch.randn((p, kp), generator=gen, device=dev)
+    else:
+        payload = torch.randint(0, 256, (p, kp), generator=gen, dtype=table.dtype, device=dev)
+    return torch.as_tensor(rows, device=dev), torch.as_tensor(slots * kp, device=dev), payload
+
+
+def _scatter_landed(table: torch.Tensor, args: tuple) -> int:
+    """Rows (K4a / K4b: ``(idx, payload)``) or slots (K7: ``(idx, off,
+    payload)``, distinct (row, offset) pairs) that land in ``table``."""
+    idx, payload = args[0], args[-1]
+    ok = (idx >= 0) & (idx < table.shape[0])
+    if len(args) == 3:
+        ok &= (args[1] >= 0) & (args[1] + payload.shape[1] <= table[0].numel())
+        return int(ok.sum())
+    return int(torch.unique(idx[ok]).numel())
+
+
+def _scatter_bytes(table: torch.Tensor, args: tuple) -> int:
+    """A scatter's least traffic: the index streams read once, and every row
+    or slot that lands read from the payload and written once."""
+    payload = args[-1]
+    row_bytes = payload[0].numel() * payload.element_size()
+    return sum(x.numel() * x.element_size() for x in args[:-1]) + 2 * _scatter_landed(table, args) * row_bytes
+
+
+def _scatter_check(what: str, kernel, twin, table: torch.Tensor, args: tuple, library) -> dict:
+    """One scatter kernel against its twin on copies of ``table``: exactness,
+    times (kernel, twin, the one PyTorch call of ``library(table)``) and
+    the bound from :func:`_scatter_bytes`."""
+    kt = table.clone()
+    kernel(kt, *args)
+    rt = table.clone()
+    twin(rt, *args)
+    torch.cuda.synchronize()
+    exact = torch.equal(kt, rt)
+    diff = kt != rt
+    err = 0.0 if exact else float((kt[diff].double() - rt[diff].double()).abs().max())
+    del diff
+    flat = kt.view(kt.shape[0], -1)
+    changed = int((flat != table.view(table.shape[0], -1)).any(dim=1).sum())
+    n_bytes, landed = _scatter_bytes(table, args), _scatter_landed(table, args)
+    row_bytes = args[-1][0].numel() * args[-1].element_size()
+    ms = median_ms(lambda: kernel(kt, *args))
+    plain_ms = median_ms(lambda: twin(rt, *args))
+    library_ms = median_ms(lambda: library(rt))
+    del kt, rt
+    return {"kernel": what, "table": list(table.shape), "dtype": str(table.dtype).replace("torch.", ""),
+            "B": int(args[0].shape[0]), "payload_row_bytes": row_bytes, "landed": landed, "bit_exact": exact,
+            "max_abs_err": err, "rows_changed": changed, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bytes": n_bytes, "bound_ms": bound_ms(n_bytes)}
+
+
+def phase_scatter_check(rng: np.random.Generator) -> list[dict]:
+    """K4a, K4b and K7 against their twins at the mips-96d build shapes."""
+    from jvector_tpu_torch.ops.kernels.scatter_rows import (
+        scatter_rows3_inplace,
+        scatter_rows_inplace,
+        scatter_rows_ref,
+        scatter_slots_inplace,
+        scatter_slots_ref,
+    )
+
+    dev = torch.device("cuda")
+
+    def index_copy(table, idx, payload):
+        ok = (idx >= 0) & (idx < table.shape[0])
+        rows, src = idx[ok].long(), payload[ok]
+        return lambda t: t.index_copy_(0, rows, src)
+
+    def index_put(table, idx, off, payload):
+        ok = (idx >= 0) & (idx < table.shape[0]) & (off >= 0) & (off + payload.shape[1] <= table.shape[1])
+        cols = off[ok].long()[:, None] + torch.arange(payload.shape[1], device=dev)[None, :]
+        rows, src = idx[ok].long()[:, None].expand_as(cols), payload[ok]
+        return lambda t: t.index_put_((rows, cols), src)
+
+    table, args = _scatter_rows_case(rng, dev, (24, 128), torch.uint8)
+    k4a = _scatter_check("K4a scatter_rows3_inplace", scatter_rows3_inplace, scatter_rows_ref, table, args,
+                         index_copy(table, *args))
+    flat_args = (args[0], args[1].view(args[1].shape[0], -1))
+    flat = table.view(table.shape[0], -1)
+    k4b_u8 = _scatter_check("K4b scatter_rows_inplace", scatter_rows_inplace, scatter_rows_ref, flat, flat_args,
+                            index_copy(flat, *flat_args))
+    del args, flat_args
+    s_args = _scatter_slots_case(rng, dev, flat, 48)
+    k7_u8 = _scatter_check("K7 scatter_slots_inplace", scatter_slots_inplace, scatter_slots_ref, flat, s_args,
+                           index_put(flat, *s_args))
+    del table, flat, s_args
+    torch.cuda.empty_cache()
+    w2, args = _scatter_rows_case(rng, dev, (64,), torch.float32)
+    k4b_f32 = _scatter_check("K4b scatter_rows_inplace", scatter_rows_inplace, scatter_rows_ref, w2, args,
+                             index_copy(w2, *args))
+    del args
+    s_args = _scatter_slots_case(rng, dev, w2, 1)
+    k7_f32 = _scatter_check("K7 scatter_slots_inplace", scatter_slots_inplace, scatter_slots_ref, w2, s_args,
+                            index_put(w2, *s_args))
+    del w2, s_args
+    torch.cuda.empty_cache()
+    cases = {"K4a": [k4a], "K4b": [k4b_u8, k4b_f32], "K7": [k7_f32, k7_u8]}
+    for name, rows in cases.items():
+        emit({"phase": "kernel_check", "kernel": name, "cases": rows})
+        bad = [r for r in rows if not r["bit_exact"] or r["rows_changed"] == 0]
+        if bad:
+            raise SystemExit(f"{name} disagrees with its twin (or wrote nothing): {bad}")
+    return [{"name": name, "route": "cuda", "source": "jvector_tpu_torch/csrc/scatter_rows.cu",
+             "replaces": f"jvector_tpu/ops/pallas/scatter_rows.py:{line}",
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+             "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": row["library_ms"]}
+            for name, line, row in (("scatter_rows3_inplace", 82, k4a), ("scatter_rows_inplace", 54, k4b_u8),
+                                    ("scatter_slots_inplace", 189, k7_f32))]
 
 
 def _k5_inputs(gen: torch.Generator, q: int, c: int, m: int, k: int):
@@ -452,11 +633,17 @@ def _counters() -> dict:
         fused_update_inplace,
         packed_adj_only_update_inplace,
         packed_adj_update_inplace,
+        scatter_rows3_inplace,
+        scatter_rows_inplace,
+        scatter_slots_inplace,
     )
 
     return {"packed_adj_update_inplace": packed_adj_update_inplace,
             "packed_adj_only_update_inplace": packed_adj_only_update_inplace,
             "fused_update_inplace": fused_update_inplace,
+            "scatter_rows3_inplace": scatter_rows3_inplace,
+            "scatter_rows_inplace": scatter_rows_inplace,
+            "scatter_slots_inplace": scatter_slots_inplace,
             "adc_score_kernel": adc_score_kernel}
 
 
@@ -680,6 +867,80 @@ def _ltm_pq_parity(dev: torch.device, tmp: str) -> dict:
             "port_minus_jax_100": recalls[100] - JAX_LTM_PQ_RECALL_20K[100], "launches": read_counts()}
 
 
+def _robustness_corpus(name: str, base: np.ndarray, queries: np.ndarray, sim: str, dev: torch.device,
+                       n_waves: int) -> dict:
+    """bench.py's robustness row for one corpus through the bench's own
+    ``robustness_row`` (one :data:`ROBUST_QUERIES`-query wave), with the
+    build's and the serve's launches counted from 0, the build's peak
+    memory, and recall@10 at beams 100 and 200."""
+    from jvector_tpu_torch.bench import headline
+    from jvector_tpu_torch.util.datasets import recall_at_k
+
+    row = {"corpus": name, "n": base.shape[0], "dim": base.shape[1], "sim": sim, "n_waves": n_waves}
+
+    def after_build(built):
+        graph, _, sq4, upload_s, _, encode_s = built
+        row.update(fused_table=list(sq4.fused_packed.shape), upload_seconds=upload_s, sq4_encode_seconds=encode_s,
+                   build_peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+                   average_degree=graph.average_degree(), launches={"build": read_counts()})
+        reset_counts()
+
+    def after_measure(run, q, gt):
+        row["launches"]["serve"] = read_counts()
+        for b in (100, 200):
+            ids = _check_result(run(q[:GT_QUERIES], b), GT_QUERIES, f"{name} at beam {b}")
+            row[f"recall_{b}"] = recall_at_k(ids, gt, TOP_K)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (qps, qps_serial, recall, beam, p999), build_s = headline.robustness_row(
+        base, queries, sim, dev, wave=ROBUST_QUERIES, timed_queries=ROBUST_QUERIES, top_k=TOP_K,
+        gt_queries=GT_QUERIES, after_build=after_build, after_measure=after_measure)
+    torch.cuda.empty_cache()
+    row.update(build_seconds=build_s, beam_width=beam, recall=recall, qps=qps, qps_serial=qps_serial,
+               latency_p999_ms=p999)
+    return row
+
+
+def phase_robustness(n: int, n_adv: int, dev: torch.device) -> dict:
+    """bench.py's robustness corpora (see the module docstring); returns the
+    result line."""
+    from jvector_tpu_torch.bench import headline
+    from jvector_tpu_torch.graph.builder import _shuffled_wave_starts
+
+    cfg = headline.CONFIG
+    t0 = time.time()
+    base, queries = headline.mips_96d(n, ROBUST_QUERIES, TOP_K, dev)
+    data_s = time.time() - t0
+    mips = _robustness_corpus("mips-96d", base, queries, "dot_product", dev,
+                              len(_shuffled_wave_starts(n, cfg.wave_size)))
+    mips["data_seconds"] = data_s
+    del base, queries
+    base, queries = headline.clustered_adversarial(n_adv, 128, ROBUST_QUERIES)
+    adv = _robustness_corpus("clustered-adversarial", base, queries, "euclidean", dev,
+                             len(_shuffled_wave_starts(n_adv, cfg.wave_size)))
+    del base, queries
+    if n_adv == ADVERSARIAL_N:
+        adv["jax_recall"] = {str(b): r for b, r in JAX_ADVERSARIAL_RECALL_200K.items()}
+        adv["port_minus_jax"] = {str(b): adv[f"recall_{b}"] - r for b, r in JAX_ADVERSARIAL_RECALL_200K.items()}
+    result = {"phase": "robustness", "mips_96d": mips, "clustered_adversarial": adv}
+    emit(result)
+    build = mips["launches"]["build"]
+    if mips["recall"] < RECALL_FLOOR:
+        raise SystemExit(f"mips-96d: no beam <= {headline.BEAMS[-1]} reaches recall@10 {RECALL_FLOOR} "
+                         f"(beam {mips['beam_width']}: {mips['recall']})")
+    if build["scatter_rows3_inplace"] != mips["n_waves"]:
+        raise SystemExit(f"K4a launched {build['scatter_rows3_inplace']} times over {mips['n_waves']} mips-96d waves")
+    if build["packed_adj_update_inplace"] or build["fused_update_inplace"]:
+        raise SystemExit(f"the mips-96d build launched K1 or K2: {build}")
+    off = adv.get("port_minus_jax", {})
+    if any(abs(d) > PARITY_SLACK for d in off.values()):
+        raise SystemExit(f"clustered-adversarial recall differs from the JAX figures by more than {PARITY_SLACK}: "
+                         f"{off}")
+    return result
+
+
 def phase_ltm_path(n: int, dev: torch.device) -> dict:
     """The larger-than-memory path (see the module docstring); returns the
     result line."""
@@ -705,10 +966,13 @@ def phase_ltm_path(n: int, dev: torch.device) -> dict:
         return base[a:b]
 
     tmp = tempfile.mkdtemp(prefix="jvtpu_ltm_")
+    budgets = ltm._FUSED_BUILD_BUDGET, ltm._FUSED_SERVE_BUDGET
     try:
         path = os.path.join(tmp, "ltm.jvtpu")
         free_gb = shutil.disk_usage(tmp).free / 2**30
-        ltm._FUSED_BUILD_BUDGET = 0  # the base layer takes the packed (K3) regime
+        # the base layer takes the packed (K3) regime, and the save streams
+        # the fused layout from the host, as a corpus beyond the budgets does
+        ltm._FUSED_BUILD_BUDGET = ltm._FUSED_SERVE_BUDGET = 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         phases = {}
@@ -721,6 +985,7 @@ def phase_ltm_path(n: int, dev: torch.device) -> dict:
         build_launches = read_counts()
         build_peak = torch.cuda.max_memory_allocated() / 2**30
         regime = next(k.split("/", 1)[1] for k in phases if k.startswith("waves/"))
+        save = "device" if provider.supports_fused else "host"  # the host branch returns no fused tables
         n_waves = len(_shuffled_wave_starts(n, cfg.wave_size))
         file_gb = os.path.getsize(path) / 2**30
         # the returned graph, kept on the host for the round trip; the card is
@@ -761,10 +1026,12 @@ def phase_ltm_path(n: int, dev: torch.device) -> dict:
 
         pq = _ltm_pq_parity(dev, tmp)
     finally:
+        ltm._FUSED_BUILD_BUDGET, ltm._FUSED_SERVE_BUDGET = budgets
         shutil.rmtree(tmp, ignore_errors=True)
 
     result = {
-        "phase": "ltm_path", "n": n, "dim": 128, "regime": regime, "n_waves": n_waves, "loader_calls": loads[0],
+        "phase": "ltm_path", "n": n, "dim": 128, "regime": regime, "save": save, "n_waves": n_waves,
+        "loader_calls": loads[0],
         "data_seconds": data_s, "build_seconds": build_s, "build_phases": phases, "levels": levels,
         "file_gb": file_gb, "tmp_free_gb": free_gb, "host_io": native.backend(),
         "launches": {"build": build_launches, "serve": serve_launches, "pq_20k": pq.pop("launches")},
@@ -778,6 +1045,8 @@ def phase_ltm_path(n: int, dev: torch.device) -> dict:
     emit(result)
     if regime != "packed":
         raise SystemExit(f"the LTM build took the {regime} regime, not packed")
+    if save != "host":
+        raise SystemExit("the LTM save kept the fused tables on the device, not the host-streamed layout")
     if build_launches["packed_adj_only_update_inplace"] != n_waves:
         raise SystemExit(f"K3 launched {build_launches['packed_adj_only_update_inplace']} times over {n_waves} waves")
     if host_recall < HOST_RECALL_FLOOR:
@@ -794,7 +1063,7 @@ def phase_ltm_path(n: int, dev: torch.device) -> dict:
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--n", type=int, default=1_000_000,
-                   help="corpus size of the LTM path; the earlier paths run at min(n, 200,000)")
+                   help="corpus size of the mips-96d path; the other paths run at min(n, 200,000)")
     args = p.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -804,7 +1073,9 @@ def main() -> None:
     phase_env()
     phase_build()
     kernels = phase_kernel_check()
-    ltm = phase_ltm_path(args.n, dev)
+    kernels[3:3] = phase_scatter_check(np.random.default_rng(4321))
+    robust = phase_robustness(args.n, min(args.n, ADVERSARIAL_N), dev)
+    ltm = phase_ltm_path(n_earlier, dev)
     sq4 = phase_sq4_path(n_earlier, dev)
     small = phase_default_config(20_000, dev, n_queries=512, n_clusters=64, gt_queries=512, timed_beams=())
     off = {b: small["recall"][str(b)] - JAX_RECALL_20K[b] for b in JAX_RECALL_20K}
@@ -819,10 +1090,14 @@ def main() -> None:
 
     main_path = {"packed_adj_update_inplace": ("sq4_path",), "fused_update_inplace": ("sq4_path",),
                  "packed_adj_only_update_inplace": ("ltm_build",),
+                 "scatter_rows3_inplace": ("mips_96d_build",), "scatter_rows_inplace": (), "scatter_slots_inplace": (),
                  "adc_score_kernel": ("default_config_build", "default_config_serve")}
+    mips, adv = robust["mips_96d"]["launches"], robust["clustered_adversarial"]["launches"]
     for k in kernels:
         name = k["name"]
-        by_path = {"sq4_path": sq4["launches"][name],
+        by_path = {"mips_96d_build": mips["build"][name], "mips_96d_serve": mips["serve"][name],
+                   "adversarial_build": adv["build"][name], "adversarial_serve": adv["serve"][name],
+                   "sq4_path": sq4["launches"][name],
                    "default_config_build": big["launches"]["build"][name],
                    "default_config_serve": big["launches"]["serve"][name],
                    "ltm_build": ltm["launches"]["build"][name],

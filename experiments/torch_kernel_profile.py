@@ -1,13 +1,14 @@
-"""Device time of the port's K1/K2/K3/K5 CUDA kernels alone, and their register use.
+"""Device time of the port's K1/K2/K3/K4a/K4b/K5/K7 CUDA kernels alone, and their register use.
 
     python experiments/torch_kernel_profile.py
 
 Compiles ``jvector_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` and
 prints each kernel's register and spill lines, then times 20 calls of each
 wrapper at the 1M path shapes of ``chip_smoke.py`` (K5 at its serve,
-build-search and centroid-scan shapes) under ``torch.profiler`` and prints
+build-search and centroid-scan shapes; K4a, K4b and K7 at the 1M mips-96d
+build shapes of its scatter check) under ``torch.profiler`` and prints
 the CUDA self time per launch of each kernel (K1/K2/K3: one launch per
-phase), with K3's and K5's bound (bytes over 3.35 TB/s) beside it.  ``chip_smoke.py``'s CUDA-event times include the
+phase), with its bound (bytes over 3.35 TB/s) beside it.  ``chip_smoke.py``'s CUDA-event times include the
 wrapper's host-side checks and the ctypes call; these do not.  Ends with
 the card's name and power limit as ``nvidia-smi`` gives them.
 """
@@ -31,7 +32,12 @@ import chip_smoke  # noqa: E402
 from jvector_tpu_torch.ops.kernels import _build  # noqa: E402
 from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel  # noqa: E402
 from jvector_tpu_torch.ops.kernels.packed_adj import packed_adj_only_update_inplace, packed_adj_update_inplace  # noqa: E402,E501
-from jvector_tpu_torch.ops.kernels.scatter_rows import fused_update_inplace  # noqa: E402
+from jvector_tpu_torch.ops.kernels.scatter_rows import (  # noqa: E402
+    fused_update_inplace,
+    scatter_rows3_inplace,
+    scatter_rows_inplace,
+    scatter_slots_inplace,
+)
 
 
 def ptxas_usage(source: str) -> list[str]:
@@ -45,7 +51,7 @@ def ptxas_usage(source: str) -> list[str]:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    for src in ("packed_adj.cu", "fused_update.cu", "adc.cu"):
+    for src in ("packed_adj.cu", "fused_update.cu", "scatter_rows.cu", "adc.cu"):
         print(json.dumps({"source": src, "ptxas": ptxas_usage(src)}), flush=True)
 
     dev = torch.device("cuda")
@@ -59,7 +65,25 @@ def main() -> None:
         ("K2 fused_update_inplace", lambda: fused_update_inplace(table, *k2_args)),
     ]
     gen = torch.Generator(device=dev).manual_seed(7)
-    bounds = {"K3 packed_adj_only_update_inplace": chip_smoke.bound_ms(chip_smoke._k3_bytes(k3_adj, k3_args)) * 1e3}
+    bounds = {"K1 packed_adj_update_inplace": chip_smoke.bound_ms(chip_smoke._k1_bytes(adj, k1_args)) * 1e3,
+              "K3 packed_adj_only_update_inplace": chip_smoke.bound_ms(chip_smoke._k3_bytes(k3_adj, k3_args)) * 1e3,
+              "K2 fused_update_inplace": chip_smoke.bound_ms(chip_smoke._k2_bytes(table, k2_args)) * 1e3}
+    fused96, k4a_args = chip_smoke._scatter_rows_case(rng, dev, (24, 128), torch.uint8)
+    flat96 = fused96.view(fused96.shape[0], -1)
+    k4b_args = (k4a_args[0], k4a_args[1].view(k4a_args[1].shape[0], -1))
+    w2, k4b_f32_args = chip_smoke._scatter_rows_case(rng, dev, (64,), torch.float32)
+    k7_args = chip_smoke._scatter_slots_case(rng, dev, w2, 1)
+    calls += [
+        ("K4a scatter_rows3_inplace", lambda: scatter_rows3_inplace(fused96, *k4a_args)),
+        ("K4b scatter_rows_inplace u8", lambda: scatter_rows_inplace(flat96, *k4b_args)),
+        ("K4b scatter_rows_inplace f32", lambda: scatter_rows_inplace(w2, *k4b_f32_args)),
+        ("K7 scatter_slots_inplace f32", lambda: scatter_slots_inplace(w2, *k7_args)),
+    ]
+    for name, (dst, args) in {"K4a scatter_rows3_inplace": (fused96, k4a_args),
+                              "K4b scatter_rows_inplace u8": (flat96, k4b_args),
+                              "K4b scatter_rows_inplace f32": (w2, k4b_f32_args),
+                              "K7 scatter_slots_inplace f32": (w2, k7_args)}.items():
+        bounds[name] = chip_smoke.bound_ms(chip_smoke._scatter_bytes(dst, args)) * 1e3
     for shape in ("serve", "build_search", "centroid_scan"):
         luts, codes = chip_smoke._k5_inputs(gen, *chip_smoke.K5_SHAPES[shape])
         name = f"K5 adc_score_kernel {shape}"

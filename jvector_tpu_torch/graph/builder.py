@@ -67,7 +67,7 @@ from jvector_tpu_torch.graph.score import (
 )
 from jvector_tpu_torch.graph.searcher import _repack_tail, search_layer
 from jvector_tpu_torch.ops.kernels.packed_adj import packed_adj_only_update_inplace, packed_adj_update_inplace
-from jvector_tpu_torch.ops.kernels.scatter_rows import fused_update_inplace
+from jvector_tpu_torch.ops.kernels.scatter_rows import fused_update_inplace, scatter_rows3_inplace
 from jvector_tpu_torch.ops.similarity import SimilarityFunction, normalize_score, pairwise_raw
 from jvector_tpu_torch.quantization.sq import ScalarQuantization4
 from jvector_tpu_torch.util.device import resolve_device
@@ -424,8 +424,10 @@ def _wave_update_fused(
     """Insert a searched wave AND keep the fused SQ4 tables slot-exact: every
     adjacency write (wave rows, backlink slots, enforce rewrites) is
     mirrored into ``fused_packed`` / ``fused_w2``, so the next wave's search
-    gathers one fused row per expansion.  Rank-3 tables take K2's slot
-    patches; 2-D tables rewrite whole rows.  Rescore and prune stay exact."""
+    gathers one fused row per expansion.  Rank-3 tables whose slots tile
+    128 lanes take K2's slot patches; other tables rewrite whole rows (K4a
+    on rank-3 tables, an indexed assignment on 2-D ones).  Rescore and
+    prune stay exact."""
     W = wave_ids.shape[0]
     layer = graph.base
     n_cap = layer.neighbors.shape[0] - 1
@@ -489,13 +491,19 @@ def _wave_update_fused(
         fused_w2[p_rows, bl.scatter_slot.long()] = torch.where(p_ok, node_const[src], 0.0)
         fused_w2[er.long()] = pf_w2
     else:
-        # 2-D tables: mask lower-priority rows covered by a higher-priority
-        # image, so each surviving row is written once
+        # whole-row images: mask lower-priority rows covered by a
+        # higher-priority image, so each surviving row is written once
+        # (duplicate enforce rows carry identical images)
         rows_a = torch.where((scatter_rows[:, None] == bl_rows[None, :]).any(dim=1), n_cap, rows_a)
         rows_b = torch.where((bl_rows[:, None] == er[None, :]).any(dim=1), n_cap, bl_rows)
-        all_rows = torch.cat([rows_a, rows_b, er]).long()
-        fused_packed[all_rows] = torch.cat([f_codes, bf_codes, pf_codes])
-        fused_w2[all_rows] = torch.cat([f_w2, bf_w2, pf_w2])
+        all_rows = torch.cat([rows_a, rows_b, er]).to(torch.int32)
+        images = torch.cat([f_codes, bf_codes, pf_codes])
+        if fused_packed.dim() == 3:
+            # whole-tile rows: K4a's in-place row scatter; the sink row n_cap drops
+            scatter_rows3_inplace(fused_packed[:n_cap], all_rows, images.reshape((-1,) + fused_packed.shape[1:]))
+        else:
+            fused_packed[all_rows.long()] = images
+        fused_w2[all_rows.long()] = torch.cat([f_w2, bf_w2, pf_w2])
     return _advance(graph, layer, wave_ids)
 
 
@@ -1118,11 +1126,6 @@ class GraphIndexBuilder:
             fused_packed = torch.zeros((n_cap + 1, k_row // 128, 128), dtype=torch.uint8, device=device)
         else:
             fused_packed = torch.zeros((n_cap + 1, k_row), dtype=torch.uint8, device=device)
-        if fused_packed.dim() == 3 and not _slot_patch_supported(3, mp):
-            raise NotImplementedError(
-                f"the fused build's full-image fallback on whole-tile rows (MP={mp}) uses the TPU "
-                "kernel K4a, which is not ported yet (ROADMAP.md queue 2)"
-            )
         fused_w2 = torch.zeros((n_cap + 1, cfg.row_cap), dtype=torch.float32, device=device)
         const = build_provider.node_norm2 if sim == SimilarityFunction.COSINE else build_provider.node_w2
         codes_packed = build_provider.codes_packed

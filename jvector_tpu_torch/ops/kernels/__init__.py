@@ -10,7 +10,15 @@ from jvector_tpu_torch.ops.kernels.packed_adj import (
     packed_adj_update_inplace,
     packed_adj_update_ref,
 )
-from jvector_tpu_torch.ops.kernels.scatter_rows import fused_update_inplace, fused_update_ref
+from jvector_tpu_torch.ops.kernels.scatter_rows import (
+    fused_update_inplace,
+    fused_update_ref,
+    scatter_rows3_inplace,
+    scatter_rows_inplace,
+    scatter_rows_ref,
+    scatter_slots_inplace,
+    scatter_slots_ref,
+)
 
 __all__ = [
     "adc_score_kernel",
@@ -20,4 +28,9 @@ __all__ = [
     "packed_adj_only_update_ref",
     "fused_update_inplace",
     "fused_update_ref",
+    "scatter_rows3_inplace",
+    "scatter_rows_inplace",
+    "scatter_rows_ref",
+    "scatter_slots_inplace",
+    "scatter_slots_ref",
 ]

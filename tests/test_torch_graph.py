@@ -120,17 +120,6 @@ def test_port_build_recall_matches_jax_build(served):
         assert rb >= ra - 0.01, (beam, ra, rb)
 
 
-@pytest.mark.parametrize("dim, cfg", [(96, GraphConfig(wave_size=64))], ids=["k4a_full_image_fallback"])
-def test_unported_build_paths_raise(dim, cfg):
-    """The one build path still unported raises instead of falling back:
-    the fused loop's full-image rewrite of whole-tile rows whose codes do
-    not tile 128 lanes (d=96: 48-byte codes), which the JAX package runs on
-    the TPU kernel K4a."""
-    x = np.random.default_rng(0).normal(size=(600, dim)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="K4a"):
-        build_graph(x, "euclidean", cfg, device="cpu")
-
-
 @pytest.mark.parametrize(
     "dim, cfg",
     [(32, GraphConfig(build_compression=None)), (32, GraphConfig(add_hierarchy=True)), (30, GraphConfig())],

@@ -142,12 +142,14 @@ def test_pq_cleanup_matches(pq_build):
     assert int(tc.base.counts.max()) <= 32
 
 
-@pytest.mark.parametrize("d", [32, 30], ids=["slot_patch", "full_rows"])
+@pytest.mark.parametrize("d", [32, 30, 96], ids=["slot_patch", "full_rows", "whole_tile_full_rows"])
 def test_fused_wave_loop_matches(d):
     """The unpacked SQ4 loop (the hierarchy's small levels): 64-node waves
     are not packed-eligible.  d=32 keeps a whole-tile ``[N, T, 128]`` fused
     table updated by K2's slot patches; d=30 (15-byte codes) a 2-D table
-    rewritten row by row.  Graph and fused tables equal after every wave."""
+    rewritten row by row; d=96 (48-byte codes, which do not tile 128
+    lanes) a whole-tile ``[N, 24, 128]`` table rewritten row by row through
+    K4a's twin.  Graph and fused tables equal after every wave."""
     n = 400
     data = _grid_corpus(n, d, seed=3)
     n_cap = jidx.bucket_capacity(n)
@@ -157,7 +159,8 @@ def test_fused_wave_loop_matches(d):
     assert cfg_j.row_cap == cfg_t.row_cap
     assert not tb._packed_build_eligible(cfg_t, mp, n_cap) and not jb._packed_build_eligible(cfg_j, mp, n_cap)
     k_row = cfg_t.row_cap * mp
-    assert (k_row % 1024 == 0) == (d == 32)
+    assert (k_row % 1024 == 0) == (d != 30)
+    assert tb._slot_patch_supported(2 if d == 30 else 3, mp) == (d == 32)
     one, zero = np.ones(d, np.float32), np.zeros(d, np.float32)
     jq = jsq.ScalarQuantization4(scale=jnp.asarray(one), offset=jnp.asarray(zero), original_dim=d)
     codes = np.zeros((n_cap, mp), np.uint8)

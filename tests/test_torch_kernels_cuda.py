@@ -1,4 +1,5 @@
-"""K1, K2, K3 and K5 kernels against their plain twins on a CUDA device.
+"""K1, K2, K3, K4a, K4b, K5 and K7 kernels against their plain twins on a
+CUDA device.
 
 The kernels have no CPU mode: without a card these tests skip, and
 ``chip_smoke.py`` runs the same comparison at the main-path shapes.  This
@@ -203,3 +204,90 @@ def test_k5_shared_table_and_rejects(cuda_device):
     with pytest.raises(ValueError, match="256"):
         tadc.adc_score_kernel(torch.zeros((5, 16, 512), device=cuda_device), tc)
     assert tadc.adc_score_kernel.launches == before
+
+
+def _scatter_case(seed: int, shape: tuple, b: int, dtype):
+    """A row scatter: unique in-range rows, two dropped rows and a duplicate
+    carrying an identical image (the builder's contract)."""
+    rng = np.random.default_rng(seed)
+
+    def rnd(*s):
+        if dtype == np.float32:
+            return rng.normal(size=s).astype(np.float32)
+        return rng.integers(np.iinfo(dtype).min, np.iinfo(dtype).max, s, dtype=dtype, endpoint=True)
+
+    table = rnd(*shape)
+    idx = rng.choice(shape[0], b, replace=False).astype(np.int32)
+    idx[1], idx[5] = -1, shape[0]
+    idx[7] = idx[3]
+    payload = rnd(b, *shape[1:])
+    payload[7] = payload[3]
+    return table, idx, payload
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape, dtype",
+    [((4096, 24, 128), np.uint8), ((512, 2, 128), np.uint8)],
+    ids=["k4a_d96_rows", "k4a_small_rows"],
+)
+def test_k4a_kernel_matches_twin_on_card(cuda_device, shape, dtype):
+    table, idx, payload = _scatter_case(11, shape, 300, dtype)
+    args = (_t(idx, cuda_device), _t(payload, cuda_device))
+    before = tsr.scatter_rows3_inplace.launches
+    got = tsr.scatter_rows3_inplace(_t(table, cuda_device), *args)
+    want = tsr.scatter_rows_ref(_t(table, cuda_device), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not torch.equal(got, _t(table, cuda_device))
+    assert tsr.scatter_rows3_inplace.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape, dtype",
+    [((700, 64), np.uint8), ((700, 45), np.uint8), ((700, 33), np.int32), ((700, 40), np.float32)],
+    ids=["u8_16B_rows", "u8_odd_rows", "i32_4B_rows", "f32_16B_rows"],
+)
+def test_k4b_kernel_matches_twin_on_card(cuda_device, shape, dtype):
+    """Each copy width: 16-byte vectors, single bytes, 4-byte words."""
+    table, idx, payload = _scatter_case(12, shape, 257, dtype)
+    args = (_t(idx, cuda_device), _t(payload, cuda_device))
+    before = tsr.scatter_rows_inplace.launches
+    got = tsr.scatter_rows_inplace(_t(table, cuda_device), *args)
+    want = tsr.scatter_rows_ref(_t(table, cuda_device), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not torch.equal(got, _t(table, cuda_device))
+    assert tsr.scatter_rows_inplace.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape, kp, dtype",
+    [((600, 64), 16, np.float32), ((600, 64), 5, np.float32), ((600, 45), 7, np.uint8)],
+    ids=["f32_aligned_slots", "f32_word_slots", "u8_byte_slots"],
+)
+def test_k7_kernel_matches_twin_on_card(cuda_device, shape, kp, dtype):
+    """Slots at every offset (some leave their row and drop whole)."""
+    table = _scatter_case(13, shape, 8, dtype)[0]
+    payload = _scatter_case(14, (200, kp), 8, dtype)[0]
+    rng = np.random.default_rng(15)
+    idx = rng.choice(shape[0], 200, replace=False).astype(np.int32)  # unique rows: slots may overlap
+    idx[1], idx[5] = -1, shape[0]
+    off = rng.integers(-2, shape[1] - kp + 3, idx.size).astype(np.int32)
+    args = (_t(idx, cuda_device), _t(off, cuda_device), _t(payload, cuda_device))
+    before = tsr.scatter_slots_inplace.launches
+    got = tsr.scatter_slots_inplace(_t(table, cuda_device), *args)
+    want = tsr.scatter_slots_ref(_t(table, cuda_device), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not torch.equal(got, _t(table, cuda_device))
+    assert tsr.scatter_slots_inplace.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_scatter_rejects_non_contiguous_before_launch(cuda_device):
+    table = torch.zeros((64, 2, 128), dtype=torch.uint8, device=cuda_device)
+    idx = torch.arange(4, dtype=torch.int32, device=cuda_device)
+    before = tsr.scatter_rows3_inplace.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        tsr.scatter_rows3_inplace(table[::2], idx, torch.ones((4, 2, 128), dtype=torch.uint8, device=cuda_device))
+    assert tsr.scatter_rows3_inplace.launches == before

@@ -129,11 +129,16 @@ class _FailingLoader:
 def test_ltm_resume_bit_identical(regime, corpus, tmp_path_factory, tmp_path, monkeypatch):
     """Crash after four waves (checkpoints every two), call again: the
     resumed build's file equals the uninterrupted build's (the packed
-    regime restores its packed table, the PQ build its [N, R] graph)."""
+    regime restores its packed table, the PQ build its [N, R] graph).  The
+    packed builds also save through the larger-than-memory branch
+    (``_FUSED_SERVE_BUDGET`` = 0: L0 and the fused layout streamed from the
+    host, a provider without fused tables), which must write the same file
+    as the uninterrupted build's on-device save."""
     b = _both_builds(regime, corpus, tmp_path_factory, monkeypatch)
     clean = b["torch"]
     if regime == "packed":
         monkeypatch.setattr(tltm, "_FUSED_BUILD_BUDGET", 0)
+        monkeypatch.setattr(tltm, "_FUSED_SERVE_BUDGET", 0)
     p = tmp_path / "crashy.jvtpu"
 
     def build(vectors):
@@ -145,7 +150,9 @@ def test_ltm_resume_bit_identical(regime, corpus, tmp_path_factory, tmp_path, mo
         build(_FailingLoader(corpus, fail_after=5 if regime == "packed" else 4))
     ck = tfmt.IndexFileReader(str(p) + ".ckpt")
     assert ck.meta["waves_done"] == 4 and ck.meta.get("packed", False) is (regime == "packed")
-    build(corpus)
+    _, provider = build(corpus)
+    if regime == "packed":
+        assert not provider.supports_fused  # the host-streamed save ran
     assert not (tmp_path / "crashy.jvtpu.ckpt").exists()
     a, b = tfmt.IndexFileReader(clean), tfmt.IndexFileReader(p)
     assert a.meta == b.meta and a.array_names() == b.array_names()
