@@ -20,11 +20,13 @@ Phases, each printing one JSON line:
    table, and 48-byte slots on the 2-D uint8 view) against their twins
    (bit-exact); and K5 (PQ ADC) against its twin at the build, serve,
    centroid-scan and an unaligned shape (``torch.allclose(rtol=1e-5,
-   atol=1e-4)``: only the order of the float32 sum differs); each with the
-   median time of 20 runs from CUDA events, beside its bound (bytes over
-   3.35 TB/s) and the PyTorch call that computes the same function, where
-   one does (K4a / K4b: ``index_copy_``, K7: ``index_put_``, K5: gather +
-   sum);
+   atol=1e-4)``: only the order of the float32 sum differs), and K6 (LUT16
+   ADC) against its twin at the flagship and 1M mips-96d serve shapes, the
+   micro's, the shared-table cosine norm and an unaligned shape (the same
+   tolerance); each with the median time of 20 runs from CUDA events,
+   beside its bound (bytes over 3.35 TB/s) and the PyTorch call that
+   computes the same function, where one does (K4a / K4b: ``index_copy_``,
+   K7: ``index_put_``, K5: gather + sum, K6: a gather per nibble + sum);
 4. robustness (``bench.py``'s robustness corpora through
    ``jvector_tpu_torch.bench.headline``): **mips-96d at ``--n``** (the main
    path, at bench.py's size): ``synthetic_dataset(n, dim=96,
@@ -37,10 +39,15 @@ Phases, each printing one JSON line:
    ``min(--n, 200,000)``** the same way, held at n = 200,000 to the JAX
    package's recall@10 at beams 100 and 200
    (``experiments/torch_robustness_cpu.py``).
+   Before the mips-96d index is freed, a LUT16 serve over its graph (PQ at
+   m = 48, K = 16, ``sim="dot_product"``, exact rerank at ``rerank_k =
+   beam``): recall@10 at beams 100, 200 and 400 and QPS at beam 200,
+   recorded without a floor (the reference's own LUT16 recall falls with
+   n on this corpus, ``experiments/torch_lut16_cpu.py``).
    Fails if no beam <= 200 reaches recall@10 0.95 on mips-96d, if K4a's
    launches over that build differ from the number of waves or K1 or K2
-   launched there, or if the adversarial recall is more than 0.03 from
-   the JAX figure;
+   launched there, if K6 did not launch in the LUT16 serve, or if the
+   adversarial recall is more than 0.03 from the JAX figure;
 5. LTM path (``min(--n, 200,000)``): the larger-than-memory
    stream build ``build_on_disk_ltm(compression="sq4",
    GraphConfig(max_degree=32, ef_construction=100, add_hierarchy=True))``
@@ -66,9 +73,14 @@ Phases, each printing one JSON line:
    SQ4 compute/encode/provider_for_graph, exact ground truth for 1024
    queries, two-pass SQ4 + exact-rerank search in 4096-query waves at beam
    100 and at the smallest beam of bench.py's list that clears recall
-   0.955.  Fails if recall@10 at beam 100 is below 0.95 or if K1's or
+   0.955; then the **LUT16 serve** over the same graph
+   (``experiments/search_sweep_1m.py``'s ``lut16_64``: PQ at m = 64, K = 16,
+   codes packed two a byte, ``build_fused_codes_lut16``, LUT16 first pass
+   through K6 + exact rerank at ``rerank_k = beam``) at beams 40, 100 and
+   200, QPS at beam 100, with the PQ and fused-table seconds and bytes.
+   Fails if recall@10 at beam 100 is below 0.95 (SQ4 or LUT16), if K1's or
    K2's launch count over the build differs from the number of build
-   waves;
+   waves, or if K6 did not launch in the LUT16 serve;
 7. default configuration (upstream JVector's ``yaml-configs/default.yml``:
    outDegree 32, efConstruction 100, overflow 1.2, hierarchy, PQ
    construction and search with M = d/8 = 16, K = 256, no centering, FP32
@@ -84,7 +96,17 @@ Phases, each printing one JSON line:
    or non-finite scores, if the 20k recall differs from the JAX figures by
    more than 0.03, or, at n = 200,000, if recall@10 at beam 100 is below
    0.30 (the reference reaches 0.4065 there and 0.26 at 50k, where no
-   floor holds).
+   floor holds);
+8. LUT16 parity: the port builds the headline 128-d corpus at n = 20,000
+   (``GraphConfig(max_degree=32, ef_construction=100)``) and serves it as
+   in phase 6 at beams 40, 100 and 200, over 1024 queries; fails if
+   recall@10 at beam 100 is more than 0.03 from the JAX package's
+   (``experiments/torch_lut16_cpu.py``); beams 40 and 200 are printed
+   beside the JAX figures, unchecked (at beam 40 the port's own k-means
+   draws move recall more than the slack);
+9. micro: ``jvector_tpu_torch.bench.micro.run_micro()`` at its defaults
+   (n = 100,000, d = 128, 1024 queries, waves of 256), its eight rows and
+   the launches over them; fails if K5 or K6 did not launch.
 
 Phases run in this order.  Kernel
 launch counts are read per path: set to 0 just before a path, read just
@@ -146,6 +168,15 @@ HOST_RECALL_FLOOR = 0.90
 HOST_BEAM, HOST_EXPAND = 64, 4
 LTM_PQ_N = 20_000
 JAX_LTM_PQ_RECALL_20K = {10: 0.148046875, 20: 0.230078125, 50: 0.3650390625, 100: 0.493359375}
+# LUT16 (4-bit PQ, m = d/2, K = 16) first pass with exact rerank at
+# rerank_k = beam: the JAX package's recall@10 on synthetic_dataset(n=20_000,
+# dim=128, n_queries=1024, k=10, n_clusters=64, seed=0), build_graph at
+# GraphConfig(max_degree=32, ef_construction=100), over the 1024 queries
+# (experiments/torch_lut16_cpu.py); held at beam 100 within PARITY_SLACK
+LUT16_N = 20_000
+JAX_LUT16_RECALL_20K = {40: 0.91982421875, 100: 0.99560546875, 200: 0.99990234375}
+LUT16_BEAMS, LUT16_QPS_BEAM = (40, 100, 200), 100  # the flagship corpus's serve
+LUT16_MIPS_BEAMS, LUT16_MIPS_QPS_BEAM = (100, 200, 400), 200  # mips-96d: recorded, no floor
 
 
 def emit(obj: dict) -> None:
@@ -194,13 +225,13 @@ def phase_env() -> str:
 
 
 def phase_build() -> None:
-    from jvector_tpu_torch.ops.kernels import _build, adc, packed_adj, scatter_rows
+    from jvector_tpu_torch.ops.kernels import _build, adc, adc16, packed_adj, scatter_rows
 
     t0 = time.time()
     sources = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, sources))
-    for load in (packed_adj._lib, scatter_rows._lib, scatter_rows._scatter_lib, adc._lib):
+    for load in (packed_adj._lib, scatter_rows._lib, scatter_rows._scatter_lib, adc._lib, adc16._lib):
         load()
     emit({"phase": "kernel_build", "sources": sources, "seconds": time.time() - t0})
 
@@ -424,6 +455,23 @@ def _scatter_check(what: str, kernel, twin, table: torch.Tensor, args: tuple, li
             "bytes": n_bytes, "bound_ms": bound_ms(n_bytes)}
 
 
+def index_copy(table: torch.Tensor, idx: torch.Tensor, payload: torch.Tensor):
+    """K4a's / K4b's library yardstick: ``index_copy_`` of the in-range rows,
+    as a function of the table."""
+    ok = (idx >= 0) & (idx < table.shape[0])
+    rows, src = idx[ok].long(), payload[ok]
+    return lambda t: t.index_copy_(0, rows, src)
+
+
+def index_put(table: torch.Tensor, idx: torch.Tensor, off: torch.Tensor, payload: torch.Tensor):
+    """K7's library yardstick: ``index_put_`` of the slots that land, as a
+    function of the table."""
+    ok = (idx >= 0) & (idx < table.shape[0]) & (off >= 0) & (off + payload.shape[1] <= table.shape[1])
+    cols = off[ok].long()[:, None] + torch.arange(payload.shape[1], device=table.device)[None, :]
+    rows, src = idx[ok].long()[:, None].expand_as(cols), payload[ok]
+    return lambda t: t.index_put_((rows, cols), src)
+
+
 def phase_scatter_check(rng: np.random.Generator) -> list[dict]:
     """K4a, K4b and K7 against their twins at the mips-96d build shapes."""
     from jvector_tpu_torch.ops.kernels.scatter_rows import (
@@ -435,17 +483,6 @@ def phase_scatter_check(rng: np.random.Generator) -> list[dict]:
     )
 
     dev = torch.device("cuda")
-
-    def index_copy(table, idx, payload):
-        ok = (idx >= 0) & (idx < table.shape[0])
-        rows, src = idx[ok].long(), payload[ok]
-        return lambda t: t.index_copy_(0, rows, src)
-
-    def index_put(table, idx, off, payload):
-        ok = (idx >= 0) & (idx < table.shape[0]) & (off >= 0) & (off + payload.shape[1] <= table.shape[1])
-        cols = off[ok].long()[:, None] + torch.arange(payload.shape[1], device=dev)[None, :]
-        rows, src = idx[ok].long()[:, None].expand_as(cols), payload[ok]
-        return lambda t: t.index_put_((rows, cols), src)
 
     table, args = _scatter_rows_case(rng, dev, (24, 128), torch.uint8)
     k4a = _scatter_check("K4a scatter_rows3_inplace", scatter_rows3_inplace, scatter_rows_ref, table, args,
@@ -506,8 +543,13 @@ def _k5_check(gen, q, c, m, k, timed: bool) -> dict:
     if timed:
         row["ms"] = median_ms(lambda: adc_score_kernel(luts, codes))
         row["plain_ms"] = median_ms(lambda: adc_score(luts, codes))
-        row["library_ms"] = median_ms(lambda: torch.gather(luts, 2, codes.transpose(1, 2).long()).sum(1))
+        row["library_ms"] = median_ms(lambda: _k5_library(luts, codes))
     return row
+
+
+def _k5_library(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """The same function in PyTorch calls: one gather, summed over M."""
+    return torch.gather(luts, 2, codes.transpose(1, 2).long()).sum(1)
 
 
 # K5 shapes: the serve and build-search shapes this path gives the kernel
@@ -522,6 +564,59 @@ K5_SHAPES = {
     "centroid_scan": (1, 1_000_000, 16, 256),
     "unaligned": (13, 19, 5, 32),
 }
+
+
+# K6 shapes (Q, MP, C, shared table): the flagship 128-d serve (MP = 32, one
+# expansion of R = 64 slots per 4096-query wave), the 1M mips-96d serve
+# (MP = 24), the micro's lut16_adc_score (256 queries x 64 candidates), the
+# cosine norm (one table of squared centroid norms, query stride 0) and an
+# unaligned shape
+K6_SHAPES = {
+    "serve_200k": (4096, 32, 64, False),
+    "serve_mips_1m": (4096, 24, 64, False),
+    "micro": (256, 32, 64, False),
+    "cosine_norm_shared": (4096, 32, 64, True),
+    "unaligned": (12, 13, 70, False),
+}
+
+
+def _k6_inputs(gen: torch.Generator, q: int, mp: int, c: int, shared: bool):
+    dev = torch.device("cuda")
+    luts = torch.rand((1 if shared else q, mp, 32), generator=gen, device=dev) * 50.0
+    codes = torch.randint(0, 256, (q, mp, c), generator=gen, device=dev, dtype=torch.uint8)
+    return luts.expand(q, -1, -1), codes
+
+
+def _k6_bytes(luts: torch.Tensor, codes: torch.Tensor) -> int:
+    """K6's least traffic: each distinct table read once (one for a shared
+    table), the codes read once, the scores written once."""
+    tables = 1 if luts.stride(0) == 0 else luts.shape[0]
+    return tables * luts[0].numel() * 4 + codes.numel() + codes.shape[0] * codes.shape[2] * 4
+
+
+def _k6_library(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """The same function in PyTorch calls: a gather per nibble, summed over MP."""
+    return (torch.gather(luts[..., :16], 2, (codes & 15).long())
+            + torch.gather(luts[..., 16:], 2, (codes >> 4).long())).sum(1)
+
+
+def _k6_check(gen, q, mp, c, shared, timed: bool) -> dict:
+    from jvector_tpu_torch.ops.adc16 import adc16_ref
+    from jvector_tpu_torch.ops.kernels.adc16 import adc16_score_kernel
+
+    luts, codes = _k6_inputs(gen, q, mp, c, shared)
+    got = adc16_score_kernel(luts, codes)
+    want = adc16_ref(luts, codes)
+    torch.cuda.synchronize()
+    row = {"shape": {"Q": q, "MP": mp, "C": c, "shared_table": shared},
+           "allclose": bool(torch.allclose(got, want, rtol=1e-5, atol=1e-4)),
+           "max_abs_err": float((got - want).abs().max()), "bytes": _k6_bytes(luts, codes)}
+    row["bound_ms"] = bound_ms(row["bytes"])
+    if timed:
+        row["ms"] = median_ms(lambda: adc16_score_kernel(luts, codes))
+        row["plain_ms"] = median_ms(lambda: adc16_ref(luts, codes))
+        row["library_ms"] = median_ms(lambda: _k6_library(luts, codes))
+    return row
 
 
 def phase_kernel_check() -> list[dict]:
@@ -623,12 +718,26 @@ def phase_kernel_check() -> list[dict]:
                 "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
                 "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
                 "bound_by": "bytes", "library_ms": serve["library_ms"]})
+
+    rows = {name: _k6_check(gen, *shape, timed=name != "unaligned") for name, shape in K6_SHAPES.items()}
+    emit({"phase": "kernel_check", "kernel": "K6 adc16_score_kernel", "shapes": rows})
+    bad = [name for name, r in rows.items() if not r["allclose"]]
+    if bad:
+        raise SystemExit(f"K6 disagrees with its twin at {bad}")
+    serve = rows["serve_200k"]
+    out.append({"name": "adc16_score_kernel", "route": "cuda",
+                "source": "jvector_tpu_torch/csrc/adc16.cu",
+                "replaces": "jvector_tpu/ops/pallas/adc16_kernel.py:109",
+                "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+                "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
+                "bound_by": "bytes", "library_ms": serve["library_ms"]})
     torch.cuda.empty_cache()
     return out
 
 
 def _counters() -> dict:
     from jvector_tpu_torch.ops.kernels import (
+        adc16_score_kernel,
         adc_score_kernel,
         fused_update_inplace,
         packed_adj_only_update_inplace,
@@ -644,7 +753,8 @@ def _counters() -> dict:
             "scatter_rows3_inplace": scatter_rows3_inplace,
             "scatter_rows_inplace": scatter_rows_inplace,
             "scatter_slots_inplace": scatter_slots_inplace,
-            "adc_score_kernel": adc_score_kernel}
+            "adc_score_kernel": adc_score_kernel,
+            "adc16_score_kernel": adc16_score_kernel}
 
 
 def reset_counts() -> None:
@@ -675,6 +785,56 @@ def _qps(run, queries: torch.Tensor) -> float:
         run(wv)
     torch.cuda.synchronize()
     return len(timed) * WAVE / (time.time() - t)
+
+
+def _lut16_serve(graph, exact, base: torch.Tensor, queries: torch.Tensor, gt: np.ndarray, sim: str, beams: tuple,
+                 qps_beam: int | None) -> dict:
+    """A LUT16 (4-bit PQ, m = d/2, K = 16) first pass with exact rerank
+    (``rerank_k = beam``) over a built graph, as
+    ``experiments/search_sweep_1m.py``'s ``lut16_<m>`` mode serves it: PQ
+    train, encode and fused-table seconds and bytes, recall@10 over the
+    first ``len(gt)`` queries at ``beams``, QPS at ``qps_beam`` over >=
+    :data:`MIN_TIMED_QUERIES` queries, and the launches, counted from 0."""
+    from jvector_tpu_torch.graph import LUT16ScoreProvider, build_fused_codes_lut16, search
+    from jvector_tpu_torch.ops.adc16 import pack_nibbles
+    from jvector_tpu_torch.quantization import ProductQuantization
+    from jvector_tpu_torch.util.datasets import recall_at_k
+
+    n, d = base.shape
+    reset_counts()
+    t0 = time.time()
+    pq = ProductQuantization.compute(base, m=d // 2, clusters=16)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    t0 = time.time()
+    packed = torch.nn.functional.pad(pack_nibbles(pq.encode(base)), (0, 0, 0, graph.capacity - n))
+    torch.cuda.synchronize()
+    encode_s = time.time() - t0
+    t0 = time.time()
+    fused = build_fused_codes_lut16(graph.base.neighbors, packed)
+    torch.cuda.synchronize()
+    fused_s = time.time() - t0
+    prov = LUT16ScoreProvider(codes_packed=packed, fused_packed=fused, codebooks=pq.codebooks, center=pq.center,
+                              sim=sim)
+
+    def run(qs, beam):
+        return search(graph, prov, qs, top_k=TOP_K, beam_width=beam, rerank_k=beam, reranker=exact)
+
+    n_gt = gt.shape[0]
+    recalls = {}
+    for beam in beams:
+        ids = _check_result(run(queries[:n_gt], beam), n_gt, f"LUT16 search at beam {beam}")
+        recalls[beam] = recall_at_k(ids, gt, TOP_K)
+    row = {"m": pq.m, "k": pq.clusters, "mp": packed.shape[1], "fused_table": list(fused.shape),
+           "pq_train_seconds": train_s, "encode_seconds": encode_s, "fused_table_seconds": fused_s,
+           "codes_bytes": packed.numel(), "fused_table_bytes": fused.numel(),
+           "recall": {str(b): r for b, r in recalls.items()}}
+    if qps_beam is not None:
+        row["qps_beam"], row["qps"] = qps_beam, _qps(lambda q: run(q, qps_beam), queries)
+    row["launches"] = read_counts()
+    del prov, fused, packed
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_sq4_path(n: int, dev: torch.device) -> dict:
@@ -742,6 +902,58 @@ def phase_sq4_path(n: int, dev: torch.device) -> dict:
     for name in ("packed_adj_update_inplace", "fused_update_inplace"):
         if launches[name] != n_waves:
             raise SystemExit(f"{name} launched {launches[name]} times over {n_waves} build waves")
+
+    # the LUT16 serve over the same graph (experiments/search_sweep_1m.py's lut16_64)
+    del sq4, codes
+    torch.cuda.empty_cache()
+    lut16 = {"phase": "lut16_serve", "n": n, "dim": 128, "sim": "euclidean",
+             **_lut16_serve(graph, exact, base, queries, gt, "euclidean", LUT16_BEAMS, LUT16_QPS_BEAM)}
+    emit(lut16)
+    if lut16["recall"]["100"] < RECALL_FLOOR:
+        raise SystemExit(f"LUT16 recall@10 at beam 100 is {lut16['recall']['100']} < {RECALL_FLOOR}")
+    if lut16["launches"]["adc16_score_kernel"] == 0:
+        raise SystemExit("the LUT16 serve launched no K6")
+    result["lut16"] = lut16
+    return result
+
+
+def phase_lut16_parity(dev: torch.device) -> dict:
+    """The LUT16 serve on a graph the port builds at n = 20,000 on the
+    headline 128-d corpus, held to the JAX package's recall at beam 100."""
+    from jvector_tpu_torch.graph import GraphConfig, build_graph
+    from jvector_tpu_torch.util.datasets import synthetic_dataset
+
+    ds = synthetic_dataset(n=LUT16_N, dim=128, n_queries=GT_QUERIES, k=TOP_K, n_clusters=64, seed=0, device=dev)
+    base = torch.as_tensor(ds.base, device=dev)
+    t0 = time.time()
+    graph, exact = build_graph(base, "euclidean", GraphConfig(max_degree=32, ef_construction=100))
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    row = _lut16_serve(graph, exact, base, torch.as_tensor(ds.queries, device=dev), ds.ground_truth, "euclidean",
+                       tuple(JAX_LUT16_RECALL_20K), None)
+    off = {b: row["recall"][str(b)] - r for b, r in JAX_LUT16_RECALL_20K.items()}
+    result = {"phase": "lut16_parity", "n": LUT16_N, "build_seconds": build_s,
+              "average_degree": graph.average_degree(), **row, "jax_recall": JAX_LUT16_RECALL_20K,
+              "port_minus_jax": off, "held": {"beam": 100, "slack": PARITY_SLACK}}
+    emit(result)
+    if abs(off[100]) > PARITY_SLACK:
+        raise SystemExit(f"20k LUT16 recall at beam 100 is {off[100]:+} from the JAX figure")
+    return result
+
+
+def phase_micro(dev: torch.device) -> dict:
+    """``jvector_tpu_torch.bench.micro.run_micro`` at its defaults, with the
+    launches over its rows."""
+    from jvector_tpu_torch.bench.micro import run_micro
+
+    reset_counts()
+    t0 = time.time()
+    rows = run_micro(device=dev)
+    result = {"phase": "micro", "seconds": time.time() - t0, "rows": rows, "launches": read_counts()}
+    emit(result)
+    for name in ("adc_score_kernel", "adc16_score_kernel"):
+        if result["launches"][name] == 0:
+            raise SystemExit(f"the micro launched no {name}")
     return result
 
 
@@ -868,21 +1080,25 @@ def _ltm_pq_parity(dev: torch.device, tmp: str) -> dict:
 
 
 def _robustness_corpus(name: str, base: np.ndarray, queries: np.ndarray, sim: str, dev: torch.device,
-                       n_waves: int) -> dict:
+                       n_waves: int, lut16: bool = False) -> dict:
     """bench.py's robustness row for one corpus through the bench's own
     ``robustness_row`` (one :data:`ROBUST_QUERIES`-query wave), with the
     build's and the serve's launches counted from 0, the build's peak
-    memory, and recall@10 at beams 100 and 200."""
+    memory, and recall@10 at beams 100 and 200; with ``lut16``, also a
+    LUT16 serve over the same graph before the index is freed."""
     from jvector_tpu_torch.bench import headline
     from jvector_tpu_torch.util.datasets import recall_at_k
 
     row = {"corpus": name, "n": base.shape[0], "dim": base.shape[1], "sim": sim, "n_waves": n_waves}
+    index = {}
 
     def after_build(built):
-        graph, _, sq4, upload_s, _, encode_s = built
+        graph, exact, sq4, upload_s, _, encode_s = built
         row.update(fused_table=list(sq4.fused_packed.shape), upload_seconds=upload_s, sq4_encode_seconds=encode_s,
                    build_peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
                    average_degree=graph.average_degree(), launches={"build": read_counts()})
+        if lut16:
+            index.update(graph=graph, exact=exact)
         reset_counts()
 
     def after_measure(run, q, gt):
@@ -890,6 +1106,11 @@ def _robustness_corpus(name: str, base: np.ndarray, queries: np.ndarray, sim: st
         for b in (100, 200):
             ids = _check_result(run(q[:GT_QUERIES], b), GT_QUERIES, f"{name} at beam {b}")
             row[f"recall_{b}"] = recall_at_k(ids, gt, TOP_K)
+        if lut16:
+            graph, exact = index.pop("graph"), index.pop("exact")
+            row["lut16"] = _lut16_serve(graph, exact, exact.vectors[: base.shape[0]], q, gt, sim, LUT16_MIPS_BEAMS,
+                                        LUT16_MIPS_QPS_BEAM)
+            row["launches"]["lut16"] = row["lut16"].pop("launches")
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -914,7 +1135,7 @@ def phase_robustness(n: int, n_adv: int, dev: torch.device) -> dict:
     base, queries = headline.mips_96d(n, ROBUST_QUERIES, TOP_K, dev)
     data_s = time.time() - t0
     mips = _robustness_corpus("mips-96d", base, queries, "dot_product", dev,
-                              len(_shuffled_wave_starts(n, cfg.wave_size)))
+                              len(_shuffled_wave_starts(n, cfg.wave_size)), lut16=True)
     mips["data_seconds"] = data_s
     del base, queries
     base, queries = headline.clustered_adversarial(n_adv, 128, ROBUST_QUERIES)
@@ -934,6 +1155,8 @@ def phase_robustness(n: int, n_adv: int, dev: torch.device) -> dict:
         raise SystemExit(f"K4a launched {build['scatter_rows3_inplace']} times over {mips['n_waves']} mips-96d waves")
     if build["packed_adj_update_inplace"] or build["fused_update_inplace"]:
         raise SystemExit(f"the mips-96d build launched K1 or K2: {build}")
+    if mips["launches"]["lut16"]["adc16_score_kernel"] == 0:
+        raise SystemExit("the mips-96d LUT16 serve launched no K6")
     off = adv.get("port_minus_jax", {})
     if any(abs(d) > PARITY_SLACK for d in off.values()):
         raise SystemExit(f"clustered-adversarial recall differs from the JAX figures by more than {PARITY_SLACK}: "
@@ -1087,17 +1310,22 @@ def main() -> None:
                                gt_queries=GT_QUERIES, timed_beams=(20, 100))
     if n_earlier == EARLIER_N and big["recall"]["100"] < SANITY_FLOOR_200K:
         raise SystemExit(f"recall@10 at beam 100 is {big['recall']['100']} < {SANITY_FLOOR_200K}")
+    lut16_20k = phase_lut16_parity(dev)
+    micro = phase_micro(dev)
 
     main_path = {"packed_adj_update_inplace": ("sq4_path",), "fused_update_inplace": ("sq4_path",),
                  "packed_adj_only_update_inplace": ("ltm_build",),
                  "scatter_rows3_inplace": ("mips_96d_build",), "scatter_rows_inplace": (), "scatter_slots_inplace": (),
-                 "adc_score_kernel": ("default_config_build", "default_config_serve")}
+                 "adc_score_kernel": ("default_config_build", "default_config_serve"),
+                 "adc16_score_kernel": ("lut16_serve", "micro")}
     mips, adv = robust["mips_96d"]["launches"], robust["clustered_adversarial"]["launches"]
     for k in kernels:
         name = k["name"]
         by_path = {"mips_96d_build": mips["build"][name], "mips_96d_serve": mips["serve"][name],
+                   "lut16_mips_1m": mips["lut16"][name],
                    "adversarial_build": adv["build"][name], "adversarial_serve": adv["serve"][name],
-                   "sq4_path": sq4["launches"][name],
+                   "sq4_path": sq4["launches"][name], "lut16_serve": sq4["lut16"]["launches"][name],
+                   "lut16_20k": lut16_20k["launches"][name], "micro": micro["launches"][name],
                    "default_config_build": big["launches"]["build"][name],
                    "default_config_serve": big["launches"]["serve"][name],
                    "ltm_build": ltm["launches"]["build"][name],

@@ -1,16 +1,20 @@
-"""Device time of the port's K1/K2/K3/K4a/K4b/K5/K7 CUDA kernels alone, and their register use.
+"""Device time of the port's K1/K2/K3/K4a/K4b/K5/K6/K7 CUDA kernels alone, and their register use.
 
     python experiments/torch_kernel_profile.py
 
 Compiles ``jvector_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` and
 prints each kernel's register and spill lines, then times 20 calls of each
 wrapper at the 1M path shapes of ``chip_smoke.py`` (K5 at its serve,
-build-search and centroid-scan shapes; K4a, K4b and K7 at the 1M mips-96d
-build shapes of its scatter check) under ``torch.profiler`` and prints
+build-search and centroid-scan shapes; K6 at its timed serve, micro and
+shared-table shapes; K4a, K4b and K7 at the 1M mips-96d build shapes of
+its scatter check) under ``torch.profiler`` and prints
 the CUDA self time per launch of each kernel (K1/K2/K3: one launch per
-phase), with its bound (bytes over 3.35 TB/s) beside it.  ``chip_smoke.py``'s CUDA-event times include the
-wrapper's host-side checks and the ctypes call; these do not.  Ends with
-the card's name and power limit as ``nvidia-smi`` gives them.
+phase) and per call, with its bound (bytes over 3.35 TB/s) beside it,
+then the device time per call of the library calls that ``chip_smoke.py``
+times as yardsticks (``index_copy_``, ``index_put_``, gather + sum).
+``chip_smoke.py``'s CUDA-event times include the wrapper's host-side
+checks and the ctypes call; these do not.  Ends with the card's name and
+power limit as ``nvidia-smi`` gives them.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from jvector_tpu_torch.ops.kernels import _build  # noqa: E402
 from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel  # noqa: E402
+from jvector_tpu_torch.ops.kernels.adc16 import adc16_score_kernel  # noqa: E402
 from jvector_tpu_torch.ops.kernels.packed_adj import packed_adj_only_update_inplace, packed_adj_update_inplace  # noqa: E402,E501
 from jvector_tpu_torch.ops.kernels.scatter_rows import (  # noqa: E402
     fused_update_inplace,
@@ -51,7 +56,7 @@ def ptxas_usage(source: str) -> list[str]:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    for src in ("packed_adj.cu", "fused_update.cu", "scatter_rows.cu", "adc.cu"):
+    for src in ("packed_adj.cu", "fused_update.cu", "scatter_rows.cu", "adc.cu", "adc16.cu"):
         print(json.dumps({"source": src, "ptxas": ptxas_usage(src)}), flush=True)
 
     dev = torch.device("cuda")
@@ -89,6 +94,21 @@ def main() -> None:
         name = f"K5 adc_score_kernel {shape}"
         bounds[name] = chip_smoke.bound_ms(luts.numel() * 4 + codes.numel() + codes.shape[0] * codes.shape[1] * 4) * 1e3
         calls.append((name, lambda luts=luts, codes=codes: adc_score_kernel(luts, codes)))
+    for shape in ("serve_200k", "serve_mips_1m", "micro", "cosine_norm_shared"):
+        luts, codes = chip_smoke._k6_inputs(gen, *chip_smoke.K6_SHAPES[shape])
+        name = f"K6 adc16_score_kernel {shape}"
+        bounds[name] = chip_smoke.bound_ms(chip_smoke._k6_bytes(luts, codes)) * 1e3
+        calls.append((name, lambda luts=luts, codes=codes: adc16_score_kernel(luts, codes)))
+    # the library calls that compute the same functions (chip_smoke.py's yardsticks)
+    calls += [
+        ("library index_copy_ (K4b f32)", lambda f=chip_smoke.index_copy(w2, *k4b_f32_args): f(w2)),
+        ("library index_put_ (K7 f32)", lambda f=chip_smoke.index_put(w2, *k7_args): f(w2)),
+        ("library index_copy_ (K4a)", lambda f=chip_smoke.index_copy(fused96, *k4a_args): f(fused96)),
+    ]
+    luts, codes = chip_smoke._k5_inputs(gen, *chip_smoke.K5_SHAPES["serve"])
+    calls.append(("library gather + sum (K5 serve)", lambda: chip_smoke._k5_library(luts, codes)))
+    luts16, codes16 = chip_smoke._k6_inputs(gen, *chip_smoke.K6_SHAPES["serve_200k"])
+    calls.append(("library gather + sum (K6 serve_200k)", lambda: chip_smoke._k6_library(luts16, codes16)))
     for name, fn in calls:
         fn()  # build and warm up
         torch.cuda.synchronize()
@@ -98,7 +118,10 @@ def main() -> None:
             torch.cuda.synchronize()
         rows = [(e.key, e.self_device_time_total / e.count, e.count)
                 for e in prof.key_averages() if e.self_device_time_total > 0]
-        print(json.dumps({"kernel": name, "device_us_per_launch": rows, "bound_us": bounds.get(name)}), flush=True)
+        # a window in which the profiler recorded no device time reports null, not 0
+        per_call = sum(t * c for _, t, c in rows) / 20 if rows else None
+        print(json.dumps({"kernel": name, "device_us_per_launch": rows, "bound_us": bounds.get(name),
+                          "device_us_per_call": per_call}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
 

@@ -42,12 +42,12 @@ from __future__ import annotations
 import argparse
 import gc
 import json
-import subprocess
 import time
 
 import numpy as np
 import torch
 
+from jvector_tpu_torch.bench.diagnostics import device_label
 from jvector_tpu_torch.graph import GraphConfig, build_graph, search
 from jvector_tpu_torch.quantization import ScalarQuantization4
 from jvector_tpu_torch.util.datasets import exact_ground_truth, recall_at_k, synthetic_dataset
@@ -85,16 +85,6 @@ def clustered_adversarial(n: int, dim: int, n_queries: int, seed: int = 7) -> tu
     zq = centers[qa] + rng.normal(0.0, 0.18, size=(n_queries, ld)).astype(np.float32)
     queries = (zq @ proj + rng.normal(0.0, 0.02, size=(n_queries, dim))).astype(np.float32)
     return base, queries
-
-
-def device_label(dev: torch.device) -> str:
-    """The card's name and power limit as nvidia-smi gives them; "cpu" on
-    the CPU."""
-    if dev.type != "cuda":
-        return str(dev)
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
-    return out[0] if len(out) == 1 else out[dev.index or 0]
 
 
 def _sync(dev: torch.device) -> None:

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from jvector_tpu_torch.graph.index import GraphIndex, GraphLayer
+from jvector_tpu_torch.graph.score import LUT16ScoreProvider
+from jvector_tpu_torch.ops.similarity import SimilarityFunction
 from jvector_tpu_torch.quantization.pq import ProductQuantization
 from jvector_tpu_torch.quantization.sq import ScalarQuantization4
 from jvector_tpu_torch.util.device import resolve_device
@@ -79,6 +81,29 @@ def pq_from_numpy(
         codebooks=torch.as_tensor(np.array(codebooks, np.float32), device=device),
         center=None if center is None else torch.as_tensor(np.array(center, np.float32), device=device),
         original_dim=int(original_dim),
+    )
+
+
+def lut16_from_numpy(
+    codes_packed: np.ndarray,  # uint8 [N, MP]
+    fused_packed: np.ndarray | None,  # uint8 [N, MP, R] or None
+    codebooks: np.ndarray,  # float32 [M, 16, S]
+    center: np.ndarray | None,  # float32 [M*S] or None
+    sim: SimilarityFunction | str,
+    device: torch.device | str = "cuda",
+) -> LUT16ScoreProvider:
+    """A LUT16 (4-bit PQ) score provider from the JAX package's arrays."""
+    device = resolve_device(device)
+
+    def f32(x):
+        return None if x is None else torch.as_tensor(np.array(x, np.float32), device=device)
+
+    return LUT16ScoreProvider(
+        codes_packed=codes_from_numpy(codes_packed, device),
+        fused_packed=None if fused_packed is None else codes_from_numpy(fused_packed, device),
+        codebooks=f32(codebooks),
+        center=f32(center),
+        sim=SimilarityFunction.parse(sim),
     )
 
 

@@ -1,11 +1,12 @@
 """Score providers (counterpart of ``jvector_tpu/graph/score.py``: the
-exact, SQ4, PQ-ADC and fused PQ-ADC providers).
+exact, SQ4, PQ-ADC, fused PQ-ADC and LUT16 (4-bit PQ) providers).
 
 A provider has ``prepare(queries)`` -> per-wave query state and
 ``score(qstate, ids [Q, C])`` -> ``[Q, C]`` scores (higher = closer); the
 fused providers add ``score_edges`` over their neighbor-code tables, and
 the build providers add ``pairwise`` for the diversity prune.  The PQ
-providers score through the K5 kernel (``ops/kernels/adc.py``).
+providers score through the K5 kernel (``ops/kernels/adc.py``), the LUT16
+provider through K6 (``ops/kernels/adc16.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import numpy as np
 import torch
 
 from jvector_tpu_torch.ops.adc import build_partial_sums, partial_squared_magnitudes
+from jvector_tpu_torch.ops.adc16 import lut_pairs, unpack_nibbles
 from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel
+from jvector_tpu_torch.ops.kernels.adc16 import adc16_score_kernel
 from jvector_tpu_torch.ops.similarity import SimilarityFunction, normalize_score, pairwise_raw
 from jvector_tpu_torch.quantization.sq import group_dims, unpack_nibble_rows, unpack_nibble_rows_grouped
 
@@ -380,4 +383,120 @@ def build_fused_codes(neighbors: torch.Tensor, codes: torch.Tensor, chunk: int =
         blk = neighbors[start : start + chunk]
         gathered = codes[torch.clamp(blk, min=0).long()]
         out[start : start + blk.shape[0]] = torch.where((blk >= 0)[..., None], gathered, 0)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class LUT16ScoreProvider:
+    """Edge-fused 4-bit PQ scoring: K = 16 centroids per subspace, two codes
+    a byte, and twice the subspaces of 8-bit PQ for the same bits a vector,
+    so each query's lookup tables are 16x smaller (the trade of SCANN's
+    LUT16; the reference's ``FusedPQ`` pins K = 256).
+
+    Layouts (see :mod:`jvector_tpu_torch.ops.adc16`):
+
+    - ``codes_packed [N, MP]`` uint8 (MP = M/2 packed bytes): entry, rerank
+      pool and arbitrary-id scoring;
+    - ``fused_packed [N, MP, R]`` uint8: each node's neighbors' packed codes,
+      subspace-major and slot-aligned with its adjacency row (or None when
+      only :meth:`score` is used).
+    """
+
+    codes_packed: torch.Tensor  # [N, MP] uint8
+    fused_packed: torch.Tensor | None  # [N, MP, R] uint8
+    codebooks: torch.Tensor  # [M, 16, S] float32
+    center: torch.Tensor | None  # [M*S] or None
+    sim: SimilarityFunction = SimilarityFunction.EUCLIDEAN
+
+    @property
+    def exact(self) -> bool:
+        return False
+
+    @property
+    def supports_fused(self) -> bool:
+        return True
+
+    @property
+    def padded_dim(self) -> int:
+        m, _, s = self.codebooks.shape
+        return m * s
+
+    def prepare(self, queries: torch.Tensor) -> torch.Tensor:
+        """Paired LUTs ``[Q, MP, 32]``."""
+        q = queries.float()
+        if q.shape[-1] < self.padded_dim:
+            q = torch.nn.functional.pad(q, (0, self.padded_dim - q.shape[-1]))
+        if self.center is not None:
+            q = q - self.center
+        if self.sim == SimilarityFunction.COSINE:
+            n = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+            luts = build_partial_sums(q / torch.clamp(n, min=1e-30), self.codebooks, SimilarityFunction.DOT_PRODUCT)
+        else:
+            luts = build_partial_sums(q, self.codebooks, self.sim)
+        return lut_pairs(luts)
+
+    def _norm(self, raw: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
+        """COSINE divides by the candidates' centroid norms: a second K6
+        call on one shared table of squared norms (query stride 0)."""
+        if self.sim == SimilarityFunction.COSINE:
+            c2 = lut_pairs(partial_squared_magnitudes(self.codebooks)[None])  # [1, MP, 32]
+            mag = adc16_score_kernel(c2.expand(codes_t.shape[0], -1, -1), codes_t)
+            raw = raw / torch.clamp(torch.sqrt(mag), min=1e-30)
+        return normalize_score(raw, self.sim)
+
+    def _score_codes(self, luts: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
+        """luts ``[Q, MP, 32]``, codes ``[Q, MP, C]`` -> scores ``[Q, C]`` (K6)."""
+        codes_t = codes_t.contiguous()
+        return self._norm(adc16_score_kernel(luts, codes_t), codes_t)
+
+    def score(self, luts: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """ids ``[Q, C]`` (>= 0) -> scores ``[Q, C]`` (entry, hierarchy, rerank pool)."""
+        return self._score_codes(luts, self.codes_packed[ids.long()].transpose(1, 2))
+
+    def score_edges(self, luts: torch.Tensor, node_ids: torch.Tensor) -> torch.Tensor:
+        """``[Q]`` or ``[Q, E]`` expanded nodes -> neighbor scores ``[Q, E*R]``,
+        column ``e*R + r`` for slot r of expansion e (the searcher's order)."""
+        q = node_ids.shape[0]
+        rows = self.fused_packed[node_ids.long()]  # [Q, (E,) MP, R]
+        if rows.dim() == 4:
+            rows = rows.permute(0, 2, 1, 3).reshape(q, rows.shape[2], -1)
+        return self._score_codes(luts, rows)
+
+    # -- build-time surface (decode origin, ADC against candidates) --------
+
+    def decode_centered(self, ids: torch.Tensor) -> torch.Tensor:
+        """Codes -> padded, still-centered vectors ``[..., M*S]``."""
+        codes = unpack_nibbles(self.codes_packed[ids.long()]).long()
+        m = self.codebooks.shape[0]
+        return self.codebooks[torch.arange(m, device=ids.device), codes].reshape(*ids.shape, -1)
+
+    def score_nodes(self, node_ids: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Code-to-code scores: node_ids ``[B]``, ids ``[B, R]`` -> ``[B, R]``,
+        through LUTs built from the decoded origins."""
+        origins = self.decode_centered(node_ids)
+        sim = self.sim
+        if sim == SimilarityFunction.COSINE:
+            n = torch.sqrt(torch.sum(origins * origins, dim=-1, keepdim=True))
+            origins = origins / torch.clamp(n, min=1e-30)
+            sim = SimilarityFunction.DOT_PRODUCT
+        return self.score(lut_pairs(build_partial_sums(origins, self.codebooks, sim)), ids)
+
+    def pairwise(self, ids_a: torch.Tensor, ids_b: torch.Tensor) -> torch.Tensor:
+        """Batched all-pairs ``[B, Ca, Cb]`` (one LUT per row of ``ids_a``)."""
+        b, ca = ids_a.shape
+        cb = ids_b.shape[1]
+        flat = self.score_nodes(ids_a.reshape(-1), ids_b[:, None].expand(b, ca, cb).reshape(b * ca, cb))
+        return flat.reshape(b, ca, cb)
+
+
+def build_fused_codes_lut16(neighbors: torch.Tensor, codes_packed: torch.Tensor, chunk: int = 65_536) -> torch.Tensor:
+    """Each node's neighbors' packed 4-bit codes, transposed next to its
+    adjacency row: ``out[n, j, r] = codes_packed[nbr[n, r], j]`` ``[N, MP, R]``
+    uint8; -1 padding slots get code 0 (masked by the id at search time)."""
+    n, r = neighbors.shape
+    out = torch.zeros((n, codes_packed.shape[1], r), dtype=torch.uint8, device=neighbors.device)
+    for start in range(0, n, chunk):
+        blk = neighbors[start : start + chunk]
+        gathered = codes_packed[torch.clamp(blk, min=0).long()].transpose(1, 2)  # [B, MP, R]
+        out[start : start + blk.shape[0]] = torch.where((blk >= 0)[:, None, :], gathered, 0)
     return out

@@ -4,6 +4,7 @@ tensors, runs its twin for CPU tensors, and counts its kernel launches in
 its ``launches`` attribute."""
 
 from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel
+from jvector_tpu_torch.ops.kernels.adc16 import adc16_score_kernel
 from jvector_tpu_torch.ops.kernels.packed_adj import (
     packed_adj_only_update_inplace,
     packed_adj_only_update_ref,
@@ -22,6 +23,7 @@ from jvector_tpu_torch.ops.kernels.scatter_rows import (
 
 __all__ = [
     "adc_score_kernel",
+    "adc16_score_kernel",
     "packed_adj_update_inplace",
     "packed_adj_update_ref",
     "packed_adj_only_update_inplace",

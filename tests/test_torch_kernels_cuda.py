@@ -1,5 +1,5 @@
-"""K1, K2, K3, K4a, K4b, K5 and K7 kernels against their plain twins on a
-CUDA device.
+"""K1, K2, K3, K4a, K4b, K5, K6 and K7 kernels against their plain twins on
+a CUDA device.
 
 The kernels have no CPU mode: without a card these tests skip, and
 ``chip_smoke.py`` runs the same comparison at the main-path shapes.  This
@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from jvector_tpu_torch.ops.adc import adc_score
+from jvector_tpu_torch.ops.adc16 import adc16_ref
 from jvector_tpu_torch.ops.kernels import adc as tadc
+from jvector_tpu_torch.ops.kernels import adc16 as tadc16
 from jvector_tpu_torch.ops.kernels import packed_adj as tpa
 from jvector_tpu_torch.ops.kernels import scatter_rows as tsr
 
@@ -204,6 +206,55 @@ def test_k5_shared_table_and_rejects(cuda_device):
     with pytest.raises(ValueError, match="256"):
         tadc.adc_score_kernel(torch.zeros((5, 16, 512), device=cuda_device), tc)
     assert tadc.adc_score_kernel.launches == before
+
+
+def _k6_case(seed: int, q: int, mp: int, c: int):
+    """Paired LUTs ``[Q, MP, 32]`` and packed codes ``[Q, MP, C]`` (any byte)."""
+    rng = np.random.default_rng(seed)
+    luts = (rng.random((q, mp, 32)) * 50).astype(np.float32)
+    codes = rng.integers(0, 256, (q, mp, c)).astype(np.uint8)
+    return luts, codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "q, mp, c, shared",
+    [(4096, 32, 64, False), (4096, 24, 64, False), (256, 32, 64, False), (4096, 32, 64, True), (12, 13, 70, False),
+     (2, 400, 300, False)],
+    ids=["serve_200k", "serve_mips_1m", "micro", "cosine_norm_shared", "unaligned", "mp_chunks_c_tiles"],
+)
+def test_k6_kernel_matches_twin_on_card(cuda_device, q, mp, c, shared):
+    """The chip check's shapes; a query stride of 0 shares one table (the
+    cosine norm); MP = 400 stages the LUT in two MP-chunks and C = 300 takes
+    two candidate tiles.  Only the order of the float32 sum differs."""
+    luts, codes = _k6_case(q + mp + c, q, mp, c)
+    tl, tc = _t(luts, cuda_device), _t(codes, cuda_device)
+    if shared:
+        tl = tl[:1].expand(q, -1, -1)
+    before = tadc16.adc16_score_kernel.launches
+    got = tadc16.adc16_score_kernel(tl, tc)
+    torch.cuda.synchronize()
+    assert tadc16.adc16_score_kernel.launches == before + 1
+    torch.testing.assert_close(got, adc16_ref(tl, tc), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k6_integer_tables_exact_and_rejects(cuda_device):
+    """Integer tables sum exactly in any order; bad calls are refused
+    before any launch."""
+    luts, codes = _k6_case(3, 64, 32, 64)
+    tl, tc = _t(np.round(luts), cuda_device), _t(codes, cuda_device)
+    assert torch.equal(tadc16.adc16_score_kernel(tl, tc), adc16_ref(tl, tc))
+    before = tadc16.adc16_score_kernel.launches
+    with pytest.raises(ValueError, match="uint8"):
+        tadc16.adc16_score_kernel(tl, tc.to(torch.int32))
+    with pytest.raises(ValueError, match="32 entries"):
+        tadc16.adc16_score_kernel(tl[:, :, :16].contiguous(), tc)
+    with pytest.raises(ValueError, match="contiguous"):
+        tadc16.adc16_score_kernel(tl, tc.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="do not match"):
+        tadc16.adc16_score_kernel(tl, tc[:, :31].contiguous())
+    assert tadc16.adc16_score_kernel.launches == before
 
 
 def _scatter_case(seed: int, shape: tuple, b: int, dtype):
