@@ -12,7 +12,12 @@ Phases, each printing one JSON line:
    source, all started together;
 3. kernel check: K1 (packed adjacency), K3 (packed adjacency without the
    w2 table) and K2 (fused SQ4 code table) against their plain PyTorch
-   twins at the 1M build shapes (bit-exact, ``torch.equal``); K4a (row
+   twins at the 1M build shapes (bit-exact, ``torch.equal``), with appends
+   on every wave row, enforce images on wave rows and K2's drop markers
+   inside the sorted stream; beside each one's event time, its device
+   time from 20 back-to-back calls under ``torch.profiler`` (and the
+   kernels each call launched: one, or the script fails), the host time
+   per wrapper call and the device time of the least launch (the floor); K4a (row
    scatter into the ``[1,048,576, 24, 128]`` uint8 fused table of the 1M
    mips-96d build, B = 17,408 rows with dropped and duplicate-identical
    rows), K4b (the same scatter on that table viewed 2-D, and on a
@@ -69,8 +74,11 @@ Phases, each printing one JSON line:
    host-served recall@10 is below 0.90, if the round trip differs, or if
    the 20k PQ recall is more than 0.03 from the JAX figure;
 6. SQ4 path (the flagship path, at ``min(--n, 200,000)``):
-   ``build_graph`` at ``GraphConfig(max_degree=32, ef_construction=100)``,
-   SQ4 compute/encode/provider_for_graph, exact ground truth for 1024
+   ``build_graph`` at ``GraphConfig(max_degree=32, ef_construction=100)``
+   (its middle wave is applied a second time to clones of the tables
+   through K1's and K2's twins, which must give the same tables bit for
+   bit; the line records that wave's streams and the kernels' device time
+   on them), SQ4 compute/encode/provider_for_graph, exact ground truth for 1024
    queries, two-pass SQ4 + exact-rerank search in 4096-query waves at beam
    100 and at the smallest beam of bench.py's list that clears recall
    0.955; then the **LUT16 serve** over the same graph
@@ -78,9 +86,10 @@ Phases, each printing one JSON line:
    codes packed two a byte, ``build_fused_codes_lut16``, LUT16 first pass
    through K6 + exact rerank at ``rerank_k = beam``) at beams 40, 100 and
    200, QPS at beam 100, with the PQ and fused-table seconds and bytes.
-   Fails if recall@10 at beam 100 is below 0.95 (SQ4 or LUT16), if K1's or
-   K2's launch count over the build differs from the number of build
-   waves, or if K6 did not launch in the LUT16 serve;
+   Fails if the real wave's tables differ, if recall@10 at beam 100 is
+   below 0.95 (SQ4 or LUT16), if K1's or K2's launch count over the build
+   differs from the number of build waves, or if K6 did not launch in the
+   LUT16 serve;
 7. default configuration (upstream JVector's ``yaml-configs/default.yml``:
    outDegree 32, efConstruction 100, overflow 1.2, hierarchy, PQ
    construction and search with M = d/8 = 16, K = 256, no centering, FP32
@@ -120,6 +129,7 @@ nothing of JAX.  The last line is the JSON
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -197,6 +207,45 @@ def median_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def device_us(fn, reps: int = 20) -> dict:
+    """Device time per call of ``fn`` over ``reps`` back-to-back calls, from
+    torch.profiler (the sum of the CUDA time of every kernel the calls
+    launched, over ``reps``), and the kernels launched per call by name;
+    None where the profiler recorded no device time in the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages() if e.self_device_time_total > 0]
+    if not rows:
+        return {"device_us": None, "kernels_per_call": None}
+    return {"device_us": sum(t for _, t, _ in rows) / reps, "kernels_per_call": {k: c / reps for k, _, c in rows}}
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host time per call of ``fn`` (the wrapper's checks, the ctypes call
+    and the enqueue), from the host clock over ``reps`` calls unsynchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / reps * 1e6
+
+
+def launch_floor_us() -> float | None:
+    """Device time of the least launch: one kernel that writes one 4-byte
+    word (``zero_`` on a 1-element tensor)."""
+    word = torch.zeros(1, dtype=torch.int32, device="cuda")
+    return device_us(word.zero_, reps=100)["device_us"]
+
+
 def phase_env() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -244,7 +293,9 @@ def bound_ms(n_bytes: int) -> float:
 def _k1_inputs(rng: np.random.Generator, dev, n_cap: int = 1_048_576):
     """K1 at the 1M main-path shapes: N_cap = 1,048,576 rows, W = 512,
     P = W*(M+1) = 16,896 patches sorted by row, with dropped rows, runs of
-    several patches per physical row and enforce images."""
+    several patches per physical row and enforce images; every wave row
+    takes appends and 16 enforce images land on wave rows (the hazards of
+    the one-owner design), as the builder's waves give them."""
     w, m = 512, 32
     n_pr = n_cap // 8
     big = 2**30
@@ -253,10 +304,17 @@ def _k1_inputs(rng: np.random.Generator, dev, n_cap: int = 1_048_576):
     a0 = int(rng.integers(0, n_pr - w // 8))
     a_rows = np.arange(a0, a0 + w // 8, dtype=np.int32)
     a_rows[3], a_rows[7] = -1, n_pr  # dropped
-    # appends: distinct (row, slot) pairs, several per row; enforce images
-    # on rows that take no append (the graph builder's contract)
-    rows = rng.choice(n_cap, 8000 + w, replace=False).astype(np.int32)
-    app_rows, er_rows = rows[:8000], rows[8000:]
+    # appends: distinct (row, slot) pairs, several per row, one logical row
+    # of each wave row first; enforce images on rows that take no append
+    # (the graph builder's contract), 16 of them on wave rows
+    live = a_rows[(a_rows >= 0) & (a_rows < n_pr)]
+    wave_app = live * 8 + rng.integers(0, 8, live.size)
+    wave_logical = (live[:, None] * 8 + np.arange(8)).ravel()
+    wave_er = rng.choice(np.setdiff1d(wave_logical, wave_app), 16, replace=False)
+    others = rng.choice(n_cap, 8000 + w + 1000, replace=False)
+    others = others[~np.isin(others, wave_logical)][: 8000 + w - live.size - 16].astype(np.int32)
+    app_rows = np.concatenate([wave_app, others[: 8000 - live.size]]).astype(np.int32)
+    er_rows = np.concatenate([wave_er, others[8000 - live.size:]]).astype(np.int32)
     mult = rng.integers(1, 7, app_rows.size)
     keys, slots = [], []
     for r, k in zip(app_rows, mult):
@@ -266,7 +324,7 @@ def _k1_inputs(rng: np.random.Generator, dev, n_cap: int = 1_048_576):
     keys, slots = np.array(keys[:n_app], np.int32), np.array(slots[:n_app], np.int32)
     keys[rng.random(n_app) < 0.05] = big  # dropped appends
     er_key = er_rows.copy()
-    er_key[rng.random(w) < 0.1] = big  # enforce rows not taken
+    er_key[16:][rng.random(w - 16) < 0.1] = big  # enforce rows not taken
     m_key = np.concatenate([keys, er_key])
     m_slot = np.concatenate([slots, np.zeros(w, np.int32)])
     m_img = np.concatenate([np.full(n_app, -1, np.int32), np.arange(w, dtype=np.int32)])
@@ -291,27 +349,39 @@ def _k1_inputs(rng: np.random.Generator, dev, n_cap: int = 1_048_576):
 
 def _k2_inputs(rng: np.random.Generator, dev, n_cap: int = 1_048_576):
     """K2 at the 1M main-path shapes: a [1,048,576, 32, 128] uint8 table
-    (4 KB rows, MP = 64), W = 512 wave images, W*M = 16,384 slot patches
-    sorted by row (runs of several slots per row, dropped patches at run
-    ends as the builder emits them) and W enforce images."""
+    (4 KB rows, MP = 64), W = 512 wave images (8 of them on enforce rows),
+    W*M = 16,384 slot patches sorted by row (runs of several slots per row,
+    on every other wave row too) with the builder's drop markers (-1 for an
+    enforce row's whole run and for some runs' overflow tails, inside the
+    sequence; 2**30 for the invalid tail) and W enforce images."""
     w, m, t3, mp = 512, 32, 32, 64
+    big = 2**30
     table = torch.randint(0, 256, (n_cap, t3, 128), dtype=torch.uint8, device=dev)
     w0 = int(rng.integers(0, n_cap // w)) * w
     wave_rows = np.arange(w0, w0 + w, dtype=np.int32)
     wave_rows[5], wave_rows[9] = -1, n_cap
-    rows = rng.choice(n_cap, 8000 + w, replace=False).astype(np.int32)
-    p_targets, er_rows = np.sort(rows[:8000]), rows[8000:].copy()
-    er_rows[rng.random(w) < 0.1] = -1
+    live = wave_rows[(wave_rows >= 0) & (wave_rows < n_cap)]
+    er_on_wave = rng.choice(live, 8, replace=False)
+    others = rng.choice(n_cap, 5000 + w, replace=False)
+    others = others[~np.isin(others, wave_rows)].astype(np.int32)
+    er_rows = np.concatenate([er_on_wave, others[: w - 8]]).astype(np.int32)
+    er_rows[8:][rng.random(w - 8) < 0.1] = -1
+    targets = np.sort(np.concatenate([np.setdiff1d(live, er_on_wave), others[:100], others[w:w + 3600]]))
+    p = w * m
+    er_set = set(er_rows.tolist())
     keys, slots = [], []
-    for r in p_targets:
+    for r in targets:
         k = int(rng.integers(1, 7))
         run = [r] * k
-        if rng.random() < 0.1:
+        if r in er_set:
+            run = [-1] * k  # an enforce row's run
+        elif rng.random() < 0.1:
             run[-1] = -1  # a dropped tail patch
         keys += run
         slots += list(rng.permutation(64)[:k])
-    p = w * m
-    keys, slots = np.array(keys[:p], np.int32), np.array(slots[:p], np.int32)
+    assert len(keys) < p - 400  # every target's run fits, then the invalid tail
+    keys = np.array((keys + [big] * p)[:p], np.int32)
+    slots = np.array((slots + [0] * p)[:p], np.int32)
 
     def t(x):
         return torch.as_tensor(x, device=dev)
@@ -619,6 +689,18 @@ def _k6_check(gen, q, mp, c, shared, timed: bool) -> dict:
     return row
 
 
+def _apply_times(call, floor_us) -> dict:
+    """K1's, K2's and K3's timing fields beside the event ``ms``: device us
+    per call from back-to-back calls, the kernels each call launched, the
+    host us per wrapper call, and the launch floor."""
+    dev = device_us(call)
+    per_call = dev["kernels_per_call"]
+    if per_call is not None and list(per_call.values()) != [1.0]:
+        raise SystemExit(f"a build-apply call launched {per_call} kernels, not one")
+    return {"device_us": dev["device_us"], "kernels_per_call": per_call,
+            "host_us": host_us(call), "launch_floor_us": floor_us}
+
+
 def phase_kernel_check() -> list[dict]:
     from jvector_tpu_torch.ops.kernels.packed_adj import (
         packed_adj_only_update_inplace,
@@ -631,6 +713,8 @@ def phase_kernel_check() -> list[dict]:
     dev = torch.device("cuda")
     rng = np.random.default_rng(1234)
     out = []
+    floor_us = launch_floor_us()
+    emit({"phase": "kernel_check", "kernel": "launch floor", "device_us": floor_us})
 
     adj, w2t, args = _k1_inputs(rng, dev)
     ka, kw = adj.clone(), w2t.clone()
@@ -645,16 +729,17 @@ def phase_kernel_check() -> list[dict]:
     changed = int((ka != adj).any(dim=(1, 2)).sum())
     ms = median_ms(lambda: packed_adj_update_inplace(ka, kw, *args))
     plain_ms = median_ms(lambda: packed_adj_update_ref(ra, rw, *args))
+    times = _apply_times(lambda: packed_adj_update_inplace(ka, kw, *args), floor_us)
     n_bytes = _k1_bytes(adj, args)
     emit({"phase": "kernel_check", "kernel": "K1 packed_adj_update_inplace", "bit_exact": exact,
-          "physical_rows_changed": changed, "ms": ms, "plain_ms": plain_ms, "bytes": n_bytes})
+          "physical_rows_changed": changed, "ms": ms, "plain_ms": plain_ms, **times, "bytes": n_bytes})
     if not exact or changed == 0:
         raise SystemExit("K1 disagrees with its twin")
     out.append({"name": "packed_adj_update_inplace", "route": "cuda",
                 "source": "jvector_tpu_torch/csrc/packed_adj.cu",
                 "replaces": "jvector_tpu/ops/pallas/packed_adj.py:364",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None})
+                "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None, **times})
     del w2t, ka, kw, ra, rw
 
     args = _k3_args(args)
@@ -668,16 +753,17 @@ def phase_kernel_check() -> list[dict]:
     changed = int((ka != adj).any(dim=(1, 2)).sum())
     ms = median_ms(lambda: packed_adj_only_update_inplace(ka, *args))
     plain_ms = median_ms(lambda: packed_adj_only_update_ref(ra, *args))
+    times = _apply_times(lambda: packed_adj_only_update_inplace(ka, *args), floor_us)
     n_bytes = _k3_bytes(adj, args)
     emit({"phase": "kernel_check", "kernel": "K3 packed_adj_only_update_inplace", "bit_exact": exact,
-          "physical_rows_changed": changed, "ms": ms, "plain_ms": plain_ms, "bytes": n_bytes})
+          "physical_rows_changed": changed, "ms": ms, "plain_ms": plain_ms, **times, "bytes": n_bytes})
     if not exact or changed == 0:
         raise SystemExit("K3 disagrees with its twin")
     out.append({"name": "packed_adj_only_update_inplace", "route": "cuda",
                 "source": "jvector_tpu_torch/csrc/packed_adj.cu",
                 "replaces": "jvector_tpu/ops/pallas/packed_adj.py:501",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None})
+                "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None, **times})
     del adj, ka, ra, args
 
     table, args = _k2_inputs(rng, dev)
@@ -691,16 +777,17 @@ def phase_kernel_check() -> list[dict]:
     changed = int((kt != table).any(dim=(1, 2)).sum())
     ms = median_ms(lambda: fused_update_inplace(kt, *args))
     plain_ms = median_ms(lambda: fused_update_ref(rt, *args))
+    times = _apply_times(lambda: fused_update_inplace(kt, *args), floor_us)
     n_bytes = _k2_bytes(table, args)
     emit({"phase": "kernel_check", "kernel": "K2 fused_update_inplace", "bit_exact": exact,
-          "rows_changed": changed, "ms": ms, "plain_ms": plain_ms, "bytes": n_bytes})
+          "rows_changed": changed, "ms": ms, "plain_ms": plain_ms, **times, "bytes": n_bytes})
     if not exact or changed == 0:
         raise SystemExit("K2 disagrees with its twin")
     out.append({"name": "fused_update_inplace", "route": "cuda",
                 "source": "jvector_tpu_torch/csrc/fused_update.cu",
                 "replaces": "jvector_tpu/ops/pallas/scatter_rows.py:426",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None})
+                "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None, **times})
     del table, kt, rt, args
     torch.cuda.empty_cache()
 
@@ -837,6 +924,81 @@ def _lut16_serve(graph, exact, base: torch.Tensor, queries: torch.Tensor, gt: np
     return row
 
 
+@contextlib.contextmanager
+def _real_wave_check(wave: int):
+    """Hold K1 and K2 to their twins on one real wave of the next packed
+    build: wraps ``builder._wave_apply_packed`` so that call ``wave`` (from
+    1) clones the three tables first, applies the wave through the kernels
+    (the build's own launches), applies it again to the clones through the
+    twins, and records bit equality, the streams' hazards (appends and
+    enforce images on wave rows, K2's drop markers) and the kernels' device
+    time on those streams.  The timing launches are taken back out of the
+    launch counts.  Yields the record, filled once the wave has run."""
+    from jvector_tpu_torch.graph import builder
+    from jvector_tpu_torch.ops.kernels import packed_adj as kpa
+    from jvector_tpu_torch.ops.kernels import scatter_rows as ksr
+
+    apply, record, calls = builder._wave_apply_packed, {}, [0]
+
+    @contextlib.contextmanager
+    def applying(k1, k2):  # what _wave_apply_packed calls for K1 and K2
+        builder.packed_adj_update_inplace, builder.fused_update_inplace = k1, k2
+        try:
+            yield
+        finally:
+            builder.packed_adj_update_inplace = kpa.packed_adj_update_inplace
+            builder.fused_update_inplace = ksr.fused_update_inplace
+
+    def checked(adj, w2t, fused, adj_stream, fused_stream):
+        calls[0] += 1
+        if calls[0] != wave:
+            return apply(adj, w2t, fused, adj_stream, fused_stream)
+        ra, rw, rf = adj.clone(), w2t.clone(), fused.clone()
+        apply(adj, w2t, fused, adj_stream, fused_stream)
+        args = {}
+
+        def k1_twin(*a):
+            args["k1"] = a
+            return kpa.packed_adj_update_ref(*a)
+
+        def k2_twin(*a):
+            args["k2"] = a
+            return ksr.fused_update_ref(*a)
+
+        with applying(k1_twin, k2_twin):
+            apply(ra, rw, rf, adj_stream, fused_stream)
+        torch.cuda.synchronize()
+        n_pr, n = adj.shape[0], fused.shape[0]
+        a_rows, m_key, m_img = adj_stream[0], adj_stream[3], adj_stream[8]
+        prow = torch.where(m_key < n_pr * 8, m_key >> 3, -1)
+        on_wave = torch.isin(prow, a_rows) & (prow >= 0)
+        f_rows, f_p_rows = fused_stream[0], fused_stream[2]
+        live = (f_p_rows >= 0) & (f_p_rows < n)
+        last_live = int(torch.nonzero(live).max()) if bool(live.any()) else -1
+        record.update({
+            "wave": wave, "k1_bit_exact": torch.equal(adj, ra) and torch.equal(w2t, rw),
+            "k2_bit_exact": torch.equal(fused, rf),
+            "k1_patches": int((prow >= 0).sum()), "k1_appends_on_wave_rows": int((on_wave & (m_img < 0)).sum()),
+            "k1_enforce_images_on_wave_rows": int((on_wave & (m_img >= 0)).sum()),
+            "k2_patches": int(live.sum()),
+            "k2_patches_on_wave_rows": int((torch.isin(f_p_rows, f_rows) & live).sum()),
+            "k2_minus_one_inside": int((f_p_rows[: last_live + 1] < 0).sum()),
+            "k2_drop_tail": int((f_p_rows >= n).sum()),
+        })
+        # the kernels' device time on these streams, re-applied to the twins'
+        # tables (which already hold the wave); these launches do not count
+        saved = kpa.packed_adj_update_inplace.launches, ksr.fused_update_inplace.launches
+        record["k1_device_us"] = device_us(lambda: kpa.packed_adj_update_inplace(*args["k1"]))["device_us"]
+        record["k2_device_us"] = device_us(lambda: ksr.fused_update_inplace(*args["k2"]))["device_us"]
+        kpa.packed_adj_update_inplace.launches, ksr.fused_update_inplace.launches = saved
+
+    builder._wave_apply_packed = checked
+    try:
+        yield record
+    finally:
+        builder._wave_apply_packed = apply
+
+
 def phase_sq4_path(n: int, dev: torch.device) -> dict:
     from jvector_tpu_torch.graph import GraphConfig, build_graph, search
     from jvector_tpu_torch.graph.builder import _shuffled_wave_starts
@@ -854,12 +1016,13 @@ def phase_sq4_path(n: int, dev: torch.device) -> dict:
     data_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()  # the index's peak, not the ground truth's
 
+    n_waves = len(_shuffled_wave_starts(n, cfg.wave_size))
     reset_counts()
     t0 = time.time()
-    graph, exact = build_graph(base, "euclidean", cfg)
+    with _real_wave_check(n_waves // 2) as real_wave:
+        graph, exact = build_graph(base, "euclidean", cfg)
     torch.cuda.synchronize()
     build_s = time.time() - t0
-    n_waves = len(_shuffled_wave_starts(n, cfg.wave_size))
 
     t0 = time.time()
     sq = ScalarQuantization4.compute(base)
@@ -890,13 +1053,15 @@ def phase_sq4_path(n: int, dev: torch.device) -> dict:
         points[beam]["qps"] = _qps(lambda q, b=beam: run(q, b), queries)
     launches = read_counts()
     result = {
-        "phase": "sq4_path", "n": n, "dim": 128, "n_waves": n_waves,
+        "phase": "sq4_path", "n": n, "dim": 128, "n_waves": n_waves, "real_wave_check": real_wave,
         "data_seconds": data_s, "build_seconds": build_s, "sq4_encode_seconds": encode_s,
         "average_degree": graph.average_degree(), "headline_beam": chosen,
         "beams": {str(b): v for b, v in sorted(points.items())}, "launches": launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(result)
+    if not (real_wave.get("k1_bit_exact") and real_wave.get("k2_bit_exact")):
+        raise SystemExit(f"K1 or K2 disagrees with its twin on a real wave's streams: {real_wave}")
     if points[100]["recall"] < RECALL_FLOOR:
         raise SystemExit(f"recall@10 at beam 100 is {points[100]['recall']} < {RECALL_FLOOR}")
     for name in ("packed_adj_update_inplace", "fused_update_inplace"):

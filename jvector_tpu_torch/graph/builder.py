@@ -478,12 +478,13 @@ def _wave_update_fused(
         # patches into enforce rows are masked out (their images already
         # hold the surviving backlinks); masking removes whole runs or run
         # tails, so the patch stream stays row-sorted and run-contiguous
+        # (masked entries -1, the invalid tail _BIG, as K2 asks)
         p_ok = bl.ok & ~(bl.key_sorted[:, None] == er[None, :]).any(dim=1)
         src = torch.clamp(bl.s_sorted, min=0).long()
         t3 = fused_packed.shape[1]
         fused_update_inplace(
             fused_packed[:n_cap], rows_a, f_codes.reshape(W, t3, 128),
-            torch.where(p_ok, bl.t_ok, -1), bl.scatter_slot, codes_packed[src],
+            torch.where(p_ok | ~bl.valid_sorted, bl.key_sorted, -1), bl.scatter_slot, codes_packed[src],
             er, pf_codes.reshape(W, t3, 128),
         )
         fused_w2[rows_a.long()] = f_w2
@@ -789,7 +790,10 @@ def _wave_update_compute(
     # fused-table streams
     wave_in_er = (scatter_rows[:, None] == er[None, :]).any(dim=1)
     f_rows_a = torch.where(wave_in_er, N_cap, scatter_rows)
-    f_p_rows = torch.where(p_ok, t_ok, -1)
+    # drops: -1 inside the sorted run (enforce rows, overflow tails), _BIG
+    # (the invalid entries' key) for the tail, which K2's row owners may
+    # then skip unread
+    f_p_rows = torch.where(p_ok | ~valid_sorted, key_sorted, -1)
     f_src_codes = codes_packed[torch.clamp(s_sorted, min=0).long()]
     return (
         cnt[:N_cap],

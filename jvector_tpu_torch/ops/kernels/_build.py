@@ -4,8 +4,8 @@ Each ``.cu`` file exposes a plain C interface and is compiled on first use
 by ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` into ``jvector_tpu_torch/_build/`` (listed in
 ``.gitignore``), then bound with ``ctypes``.  The library name carries a
-hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.  A failed build raises; nothing falls back.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt and a stale library is never loaded.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -48,8 +48,12 @@ def find_nvcc() -> str:
 def build(source: str) -> str:
     """Compile ``csrc/<source>`` to a shared library; returns its path."""
     src = os.path.join(CSRC, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for path in [src] + sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}-{digest}.so")
     if os.path.exists(out):
         return out

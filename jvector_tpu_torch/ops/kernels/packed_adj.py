@@ -16,7 +16,11 @@ place (the JAX package donated them) with the same phase semantics: wave
 images, then the row-sorted patch stream, rows outside ``[0, n_prows)``
 dropped.  Callers keep appends out of enforce rows and give each
 ``(row, sublane, lane)`` at most one append, which makes the result
-independent of the order within a phase.
+independent of the order within a phase; the kernel applies the patches
+in parallel and keeps no order among them.  In the stream, in-range rows
+are sorted, a negative row (a drop) may sit anywhere, and a row
+``>= n_prows`` (a drop) comes after every in-range row: the kernel's
+wave-row owners find their patches by probing it (``csrc/row_owner.cuh``).
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ def packed_adj_update_inplace(
     a_rows: torch.Tensor,  # [Wa] int32 physical rows of the wave images
     a_adj: torch.Tensor,  # [Wa, 8, 128] int32
     a_w2: torch.Tensor,  # [Wa, 8, 128] int32
-    p_prow: torch.Tensor,  # [P] int32 physical rows, SORTED (out of range = drop)
+    p_prow: torch.Tensor,  # [P] int32 physical rows, sorted (out of range = drop, see above)
     p_sub: torch.Tensor,  # [P] int32 sublane 0..7
     p_slot: torch.Tensor,  # [P] int32 lane of the id / w2 (score at 64+slot)
     p_id: torch.Tensor,  # [P] int32
@@ -86,8 +90,8 @@ def packed_adj_update_inplace(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Apply one build wave's adjacency writes in place; returns the tables.
 
-    CUDA tensors launch the K1 kernel (and count one launch); CPU tensors
-    run the twin.  Any other device raises.
+    CUDA tensors launch the K1 kernel (and count one launch) unless there is
+    nothing to write; CPU tensors run the twin.  Any other device raises.
     """
     if adj.device.type == "cpu":
         return packed_adj_update_ref(
@@ -110,6 +114,8 @@ def packed_adj_update_inplace(
     tensors = dict(adj=adj, w2t=w2t, a_rows=a_rows, a_adj=a_adj, a_w2=a_w2, p_prow=p_prow, e_adj=e_adj, e_w2=e_w2)
     for name, t in {**tensors, **streams}.items():
         _check_cuda(name, t, torch.int32, dev)
+    if n_a == 0 and p == 0:
+        return adj, w2t
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.jv_packed_adj_update(
@@ -148,7 +154,7 @@ def packed_adj_only_update_inplace(
     adj: torch.Tensor,  # [N/8, 8, 128] int32, updated in place
     a_rows: torch.Tensor,  # [Wa] int32 physical rows of the wave images
     a_adj: torch.Tensor,  # [Wa, 8, 128] int32
-    p_prow: torch.Tensor,  # [P] int32 physical rows, SORTED (out of range = drop)
+    p_prow: torch.Tensor,  # [P] int32 physical rows, sorted (out of range = drop, see above)
     p_sub: torch.Tensor,  # [P] int32 sublane 0..7
     p_slot: torch.Tensor,  # [P] int32 lane of the id (score at 64+slot)
     p_id: torch.Tensor,  # [P] int32
@@ -158,7 +164,8 @@ def packed_adj_only_update_inplace(
 ) -> torch.Tensor:
     """K3: K1's contract without the w2 table (the larger-than-memory build's
     wave apply); returns ``adj``.  CUDA tensors launch the kernel (and count
-    one launch); CPU tensors run the twin.  Any other device raises."""
+    one launch) unless there is nothing to write; CPU tensors run the twin.
+    Any other device raises."""
     if adj.device.type == "cpu":
         return packed_adj_only_update_ref(adj, a_rows, a_adj, p_prow, p_sub, p_slot, p_id, p_sc, p_img, e_adj)
     if adj.device.type != "cuda":
@@ -177,6 +184,8 @@ def packed_adj_only_update_inplace(
     dev = adj.device
     for name, t in {**dict(adj=adj, a_rows=a_rows, a_adj=a_adj, p_prow=p_prow, e_adj=e_adj), **streams}.items():
         _check_cuda(name, t, torch.int32, dev)
+    if n_a == 0 and p == 0:
+        return adj
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.jv_packed_adj_only_update(

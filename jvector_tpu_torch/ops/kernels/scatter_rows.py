@@ -11,7 +11,12 @@ holds the packed codes of node i's neighbors, adjacency slot s in bytes
 wave row images, then backlink slot patches (a row-sorted stream), then
 enforce row images, which win.  Rows outside ``[0, N)`` are dropped.
 Callers keep patches out of enforce rows and give each ``(row, slot)`` at
-most one patch; duplicate enforce rows carry identical images.
+most one patch, so the order within a phase is immaterial (the kernel
+applies the patches in parallel and keeps none); duplicate enforce rows
+carry identical images.  In the patch stream, in-range rows are sorted, a
+negative row (a drop: the builder marks an enforce row's run and a run's
+overflow tail with -1) may sit anywhere, and a row ``>= N`` (a drop) comes
+after every in-range row (``csrc/row_owner.cuh``).
 
 K4a, K4b and K7 write whole rows (``table[idx[i]] = payload[i]``) or
 slots of rows (``table[idx[i], off[i]:off[i]+Kp] = payload[i]``) in place
@@ -75,7 +80,7 @@ def fused_update_inplace(
     table: torch.Tensor,  # [N, T, 128] uint8, updated in place
     wave_rows: torch.Tensor,  # [W] int32 (out of range = drop)
     wave_img: torch.Tensor,  # [W, T, 128] uint8
-    patch_rows: torch.Tensor,  # [P] int32, SORTED by row (out of range = drop)
+    patch_rows: torch.Tensor,  # [P] int32, sorted by row (out of range = drop, see above)
     patch_slots: torch.Tensor,  # [P] int32 slot index within the row
     patch_src: torch.Tensor,  # [P, MP] uint8 raw slot codes
     er_rows: torch.Tensor,  # [E] int32
@@ -83,8 +88,8 @@ def fused_update_inplace(
 ) -> torch.Tensor:
     """Apply one build wave's fused-table writes in place; returns the table.
 
-    CUDA tensors launch the K2 kernel (and count one launch); CPU tensors
-    run the twin.  Any other device raises.
+    CUDA tensors launch the K2 kernel (and count one launch) unless there is
+    nothing to write; CPU tensors run the twin.  Any other device raises.
     """
     if table.device.type == "cpu":
         return fused_update_ref(
@@ -110,6 +115,8 @@ def fused_update_inplace(
         _check_cuda(name, x, torch.uint8, dev)
     for name, x in i32.items():
         _check_cuda(name, x, torch.int32, dev)
+    if n_w == 0 and p == 0 and n_e == 0:
+        return table
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.jv_fused_update(

@@ -193,6 +193,13 @@ def test_wave_update_streams_match(run, wave):
     for name, a, b in zip(STREAMS, jout[3], tout[3]):
         np.testing.assert_array_equal(b, a, err_msg=name)
     for name, a, b in zip(FUSED, jout[4], tout[4]):
+        if name == "f_p_rows":
+            # the port marks the invalid tail with the drop key _BIG, the JAX
+            # package with -1 (both drop; K2's row owners need drops >= N
+            # last): every in-range row and every drop position agree
+            tail = b == tb._BIG
+            assert (np.diff(tail.astype(np.int8)) >= 0).all(), "_BIG only as a tail"
+            b = np.where(tail, -1, b)
         np.testing.assert_array_equal(b, a, err_msg=name)
 
 

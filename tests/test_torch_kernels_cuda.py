@@ -100,6 +100,93 @@ def _k2_case(seed: int, n: int = 48, t3: int = 8, mp: int = 64):
     return table, (wave_rows, wave_img, np.array(rows, np.int32), np.array(slots, np.int32), p_src, er_rows, er_img)
 
 
+_DROP = 2**30  # the builder's drop key: sorts after every in-range row
+
+
+def _k1_wave_case(seed: int, p: int = 768, n_pr: int = 48, wa: int = 6, e: int = 16, max_run: int = 8):
+    """A K1 wave shaped like the builder's: ``wa`` contiguous wave rows (one
+    dropped), whose every physical row takes appends (they lead the stream
+    before truncation to ``p``), enforce sublane images half of which land
+    on wave rows (on sublanes without appends), runs of 1..``max_run``
+    distinct slots, dropped appends and untaken enforce images keyed
+    ``_DROP`` at the end (the defaults meet the TPU kernel's P % 256 == 0
+    and E % 8 == 0)."""
+    rng = np.random.default_rng(seed)
+    rnd = lambda *s: rng.integers(-(2**31), 2**31 - 1, s).astype(np.int32)  # noqa: E731
+    adj, w2t = rnd(n_pr, 8, 128), rnd(n_pr, 8, 128)
+    a0 = int(rng.integers(0, n_pr - wa))
+    a_rows = np.arange(a0, a0 + wa, dtype=np.int32)
+    a_rows[int(rng.integers(wa))] = -1
+    wave_logical = np.concatenate([np.arange(r * 8, r * 8 + 8) for r in a_rows if r >= 0])
+    e = min(e, p)
+    er = np.concatenate([rng.choice(wave_logical, e // 2, replace=False),
+                         rng.choice(np.setdiff1d(np.arange(n_pr * 8), wave_logical), e - e // 2, replace=False)])
+    free = np.setdiff1d(np.arange(n_pr * 8), er)
+    on_wave = [rng.choice(np.intersect1d(free, np.arange(r * 8, r * 8 + 8))) for r in a_rows if r >= 0]
+    targets = list(on_wave) + list(rng.permutation(np.setdiff1d(free, on_wave)))
+    keys, slots = [], []
+    for lr in targets:
+        k = int(rng.integers(1, max_run + 1))
+        keys += [lr] * k
+        slots += list(rng.permutation(64)[:k])
+        if len(keys) >= p - e:
+            break
+    n_app = p - e
+    keys, slots = np.array(keys[:n_app], np.int64), np.array(slots[:n_app], np.int32)
+    keys[rng.random(n_app) < 0.05] = _DROP
+    er_key = er.astype(np.int64)
+    er_key[rng.random(e) < 0.15] = _DROP
+    m_key = np.concatenate([keys, er_key])
+    m_slot = np.concatenate([slots, np.zeros(e, np.int32)])
+    m_img = np.concatenate([np.full(n_app, -1, np.int32), np.arange(e, dtype=np.int32)])
+    order = np.argsort(m_key, kind="stable")
+    m_key, m_slot, m_img = m_key[order], m_slot[order], m_img[order]
+    prow = np.where(m_key < n_pr * 8, m_key >> 3, _DROP).astype(np.int32)
+    args = (
+        a_rows, rnd(wa, 8, 128), rnd(wa, 8, 128), prow, (m_key & 7).astype(np.int32), m_slot,
+        rnd(p), rnd(p), rnd(p), m_img, rnd(e, 128), rnd(e, 128),
+    )
+    return adj, w2t, args
+
+
+def _k2_wave_case(seed: int, p: int = 500, n: int = 96, t3: int = 8, mp: int = 64, w: int = 8,
+                  max_run: int = 8, tail: int = _DROP):
+    """A K2 wave shaped like the builder's stream (``builder.py``'s
+    ``f_p_rows``): contiguous wave rows (one dropped, two also enforce
+    rows), every other wave row taking a run of slot patches, runs of
+    1..``max_run`` distinct slots sorted by row, -1 inside the sequence for
+    an enforce row's whole run and for some runs' overflow tails, then a
+    tail of invalid entries (``tail``: -1 as the JAX package's builder
+    emits, ``_DROP`` as the port's)."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 256, (n, t3, 128)).astype(np.uint8)
+    w0 = int(rng.integers(0, n - w))
+    wave_rows = np.arange(w0, w0 + w, dtype=np.int32)
+    wave_rows[1] = -1
+    others = rng.permutation(np.setdiff1d(np.arange(n), wave_rows))
+    er_rows = np.array([wave_rows[2], wave_rows[5], others[0], others[1], -1, others[0]], np.int32)
+    er_img = rng.integers(0, 256, (er_rows.size, t3, 128)).astype(np.uint8)
+    er_img[5] = er_img[2]  # duplicate enforce rows carry identical images
+    n_slots = t3 * 128 // mp
+    targets = np.sort(np.concatenate([[r for r in wave_rows if r >= 0], others[2 : 2 + max(40, p // 4)]]))
+    rows, slots = [], []
+    for r in targets:
+        k = int(rng.integers(1, max_run + 1))
+        run = [r] * k
+        if r in er_rows:
+            run = [-1] * k  # an enforce row's run
+        elif k > 1 and rng.random() < 0.3:
+            run[-1] = -1  # an overflow tail
+        rows += run
+        slots += list(rng.permutation(n_slots)[:k])
+    n_tail = p // 10
+    rows = (rows[: p - n_tail] + [tail] * p)[:p]
+    slots = (slots[: p - n_tail] + [0] * p)[:p]
+    src = rng.integers(0, 256, (p, mp)).astype(np.uint8)
+    wave_img = rng.integers(0, 256, (w, t3, 128)).astype(np.uint8)
+    return table, (wave_rows, wave_img, np.array(rows, np.int32), np.array(slots, np.int32), src, er_rows, er_img)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -163,6 +250,95 @@ def test_k2_rejects_slot_width_not_multiple_of_16(cuda_device):
     before = tsr.fused_update_inplace.launches
     with pytest.raises(ValueError, match="multiple of 16"):
         tsr.fused_update_inplace(_t(table, cuda_device), *dev_args)
+    assert tsr.fused_update_inplace.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w2", [True, False], ids=["k1", "k3"])
+def test_k1_k3_kernels_match_twins_with_patches_on_every_wave_row(cuda_device, w2):
+    """The wave-row owners overlay their rows' appends and enforce sublane
+    images, and the patch threads write the same bytes."""
+    adj, w2t, args = _k1_wave_case(5)
+    if not w2:
+        args = _k3_args(args)
+    dev_args = [_t(a, cuda_device) for a in args]
+    ka, kw, ra, rw = (_t(x, cuda_device) for x in (adj, w2t, adj, w2t))
+    kernel = tpa.packed_adj_update_inplace if w2 else tpa.packed_adj_only_update_inplace
+    before = kernel.launches
+    if w2:
+        kernel(ka, kw, *dev_args)
+        tpa.packed_adj_update_ref(ra, rw, *dev_args)
+    else:
+        kernel(ka, *dev_args)
+        tpa.packed_adj_only_update_ref(ra, *dev_args)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, ra) and torch.equal(kw, rw)
+    assert kernel.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [-1, _DROP], ids=["jax_minus_one_tail", "port_drop_tail"])
+def test_k2_kernel_matches_twin_with_drops_inside_runs(cuda_device, tail):
+    """-1 inside the sorted stream and either tail: the owners' probes
+    skip what they cannot read and still find every patch of their row."""
+    table, args = _k2_wave_case(6, tail=tail)
+    dev_args = [_t(a, cuda_device) for a in args]
+    before = tsr.fused_update_inplace.launches
+    kt = tsr.fused_update_inplace(_t(table, cuda_device), *dev_args)
+    rt = tsr.fused_update_ref(_t(table, cuda_device), *dev_args)
+    torch.cuda.synchronize()
+    assert torch.equal(kt, rt)
+    assert tsr.fused_update_inplace.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0, 1, 37, 4000])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k1_k2_k3_random_streams_on_card(cuda_device, seed, p):
+    """Random waves at several stream lengths (P = 0: the owners alone),
+    runs of up to 8 patches, K2 at MP = 16 / 32 / 64: each kernel equals its
+    twin and launches once a call."""
+    adj, w2t, args = _k1_wave_case(seed, p=p, n_pr=512, wa=16)
+    dev_args = [_t(a, cuda_device) for a in args]
+    ka, kw, ra, rw = (_t(x, cuda_device) for x in (adj, w2t, adj, w2t))
+    before = tpa.packed_adj_update_inplace.launches
+    tpa.packed_adj_update_inplace(ka, kw, *dev_args)
+    tpa.packed_adj_update_ref(ra, rw, *dev_args)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, ra) and torch.equal(kw, rw)
+    assert tpa.packed_adj_update_inplace.launches == before + 1
+
+    dev_args = [_t(a, cuda_device) for a in _k3_args(args)]
+    ka, ra = _t(adj, cuda_device), _t(adj, cuda_device)
+    before = tpa.packed_adj_only_update_inplace.launches
+    tpa.packed_adj_only_update_inplace(ka, *dev_args)
+    tpa.packed_adj_only_update_ref(ra, *dev_args)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, ra)
+    assert tpa.packed_adj_only_update_inplace.launches == before + 1
+
+    table, args = _k2_wave_case(seed, p=p, n=2048, mp=(16, 32, 64)[seed], w=64, tail=(-1, _DROP)[seed % 2])
+    dev_args = [_t(a, cuda_device) for a in args]
+    before = tsr.fused_update_inplace.launches
+    kt = tsr.fused_update_inplace(_t(table, cuda_device), *dev_args)
+    rt = tsr.fused_update_ref(_t(table, cuda_device), *dev_args)
+    torch.cuda.synchronize()
+    assert torch.equal(kt, rt)
+    assert tsr.fused_update_inplace.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_k1_k2_empty_calls_launch_nothing(cuda_device):
+    adj, w2t, args = _k1_wave_case(0, p=0, wa=6)
+    empty = [_t(a[:0], cuda_device) for a in args]
+    before = tpa.packed_adj_update_inplace.launches
+    ka = _t(adj, cuda_device)
+    tpa.packed_adj_update_inplace(ka, _t(w2t, cuda_device), *empty)
+    assert tpa.packed_adj_update_inplace.launches == before and torch.equal(ka, _t(adj, cuda_device))
+    table, args = _k2_wave_case(0, p=0)
+    empty = [_t(a[:0], cuda_device) for a in args]
+    before = tsr.fused_update_inplace.launches
+    tsr.fused_update_inplace(_t(table, cuda_device), *empty)
     assert tsr.fused_update_inplace.launches == before
 
 
