@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's paths once on one GPU.
 
-    python3 chip_smoke.py              # mips-96d at 1M, the other paths at 200k
+    python3 chip_smoke.py              # mips-96d at 500k, the other paths at 200k
     python3 chip_smoke.py --n 50000    # a shorter rehearsal: every path at 50k
 
 Phases, each printing one JSON line:
@@ -34,7 +34,9 @@ Phases, each printing one JSON line:
    K7: ``index_put_``, K5: gather + sum, K6: a gather per nibble + sum);
 4. robustness (``bench.py``'s robustness corpora through
    ``jvector_tpu_torch.bench.headline``): **mips-96d at ``--n``** (the main
-   path, at bench.py's size): ``synthetic_dataset(n, dim=96,
+   path; 500,000 by default, cut from bench.py's 1M so the script stays
+   within its time with the search-API phase; the kernel checks keep the
+   1M shapes): ``synthetic_dataset(n, dim=96,
    sim="dot_product", n_clusters=max(64, n // 500), seed=4)``,
    ``build_graph(..., "dot_product", GraphConfig(max_degree=32,
    ef_construction=100))``, whose SQ4 build takes the fused loop's
@@ -115,9 +117,28 @@ Phases, each printing one JSON line:
    draws move recall more than the slack);
 9. micro: ``jvector_tpu_torch.bench.micro.run_micro()`` at its defaults
    (n = 100,000, d = 128, 1024 queries, waves of 256), its eight rows and
-   the launches over them; fails if K5 or K6 did not launch.
+   the launches over them; fails if K5 or K6 did not launch;
+10. search API, one ``"phase": "search_api"`` line per graph, each part
+   run before its graph is freed (ground truth exact, on the card; recall
+   over 1024 queries, seconds over one 4096-query wave): in phase 5, the
+   host-served file's filtered search at selectivity 0.01 (the streamed
+   in-loop path, recall floor 0.90) and threshold search, and
+   ``peak_split``, the serve's device peak by allocation site; in phase 6,
+   on the SQ4 graph (SQ4 first pass + exact rerank at beam 100), filtered
+   search (four pops a step) with accept masks from ``default_rng(0)`` at
+   selectivities 0.10, 0.01 (the in-loop channel, floor 0.90) and 0.001
+   (200 nodes: the brute path, or it fails), threshold search at the median over the
+   queries of the exact 10th-best score (exact first pass; fails on a
+   result below it), resume of page 2 with and without the state (fails
+   on a repeated page-1 id) and multi-index search over four SQ4 shards of
+   50,000 built from the corpus, stacked and sequential (floor 0.90); in
+   phase 7, ``refine_graph`` and ``rescore_graph`` over the 200k base
+   layer in chunks of 1024 (fails if recall@10 at beam 100 falls by more
+   than the JAX package's own refine lowers it plus 0.01, at n = 200,000,
+   if the rescore changes a row's id set or leaves it unsorted, or if K5
+   did not launch in either).
 
-Phases run in this order.  Kernel
+Phases run in this order, phase 10's parts inside phases 5, 6 and 7.  Kernel
 launch counts are read per path: set to 0 just before a path, read just
 after.  Float32 matrix products run in full float32: TF32 is switched
 off for matmuls and cuDNN.  The run uses one card (``CUDA_VISIBLE_DEVICES``
@@ -187,6 +208,24 @@ LUT16_N = 20_000
 JAX_LUT16_RECALL_20K = {40: 0.91982421875, 100: 0.99560546875, 200: 0.99990234375}
 LUT16_BEAMS, LUT16_QPS_BEAM = (40, 100, 200), 100  # the flagship corpus's serve
 LUT16_MIPS_BEAMS, LUT16_MIPS_QPS_BEAM = (100, 200, 400), 200  # mips-96d: recorded, no floor
+# search API phase: accept-mask selectivities (0.001 of 200k is 200 nodes,
+# under the brute cutoff max(4 * beam, 512)), the recall floor of filtered
+# searches (tests/test_filtered_search.py's; the host's, tests/test_host_graph.py's),
+# the multi-index shards and the refine's recall slack (tests/test_search_api.py's)
+SELECTIVITIES = (0.10, 0.01, 0.001)
+FILTER_FLOOR = 0.90
+FILTER_EXPAND = 4  # pops a step in the filtered searches (the host serve's expand)
+API_BEAM = 100
+MULTI_SHARDS = 4
+REFINE_SLACK = 0.01
+# recall@10 at beam 100 of the JAX package's default-config graph before and
+# after refine_graph (its PQ provider, chunks of 1024) over the first 1024 of
+# this script's 200k queries (experiments/torch_refine_cpu.py --n 200000
+# --queries 8192): the reference's own PQ-scored refine lowers recall on
+# this corpus family (at 20k 0.5096 -> 0.4879, and the port refining the
+# same graph gives the same figures), so the port's drop is held to the
+# reference's plus REFINE_SLACK
+JAX_REFINE_200K = (0.40654296875, 0.40537109375)
 
 
 def emit(obj: dict) -> None:
@@ -624,13 +663,16 @@ def _k5_library(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
 # K5 shapes: the serve and build-search shapes this path gives the kernel
 # (R = 56 adjacency slots of the PQ-built base layer, E = 2 expansions per
-# build step, 64 slots on the SQ4-built upper levels), the intra-wave and
+# build step, 64 slots on the SQ4-built upper levels), the refine's beam
+# step and the rescore's score_nodes (a chunk of 1024 rows, one expansion of
+# R = 56 slots, or a row's 56 neighbors, each), the intra-wave and
 # centroid-scan calls, and an unaligned shape (M not a multiple of 16, K < 256)
 K5_SHAPES = {
     "serve": (4096, 56, 16, 256),
     "serve_fused_levels": (4096, 64, 16, 256),
     "build_search": (512, 112, 16, 256),
     "build_intra_wave": (512, 512, 16, 256),
+    "refine_search_rescore": (1024, 56, 16, 256),
     "centroid_scan": (1, 1_000_000, 16, 256),
     "unaligned": (13, 19, 5, 32),
 }
@@ -692,9 +734,14 @@ def _k6_check(gen, q, mp, c, shared, timed: bool) -> dict:
 def _apply_times(call, floor_us) -> dict:
     """K1's, K2's and K3's timing fields beside the event ``ms``: device us
     per call from back-to-back calls, the kernels each call launched, the
-    host us per wrapper call, and the launch floor."""
-    dev = device_us(call)
-    per_call = dev["kernels_per_call"]
+    host us per wrapper call, and the launch floor.  A window whose counts
+    are not whole numbers a call lost events in the profiler (a call
+    launches whole kernels), so it is taken again, at most twice."""
+    for _ in range(3):
+        dev = device_us(call)
+        per_call = dev["kernels_per_call"]
+        if per_call is None or all(float(c).is_integer() for c in per_call.values()):
+            break
     if per_call is not None and list(per_call.values()) != [1.0]:
         raise SystemExit(f"a build-apply call launched {per_call} kernels, not one")
     return {"device_us": dev["device_us"], "kernels_per_call": per_call,
@@ -872,6 +919,166 @@ def _qps(run, queries: torch.Tensor) -> float:
         run(wv)
     torch.cuda.synchronize()
     return len(timed) * WAVE / (time.time() - t)
+
+
+def _timed(fn):
+    """``fn()`` and its seconds on the host clock, the device synced."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def _exact_topk(base: torch.Tensor, queries: torch.Tensor, k: int, mask: torch.Tensor | None = None) -> np.ndarray:
+    """Exact euclidean top-k ids on the card: one float32 matmul over the
+    corpus, the columns outside ``mask`` excluded."""
+    d = (base * base).sum(dim=1)[None, :] - 2.0 * queries @ base.T
+    if mask is not None:
+        d = d.masked_fill(~mask[None, :], float("inf"))
+    return torch.topk(d, k, dim=1, largest=False).indices.cpu().numpy()
+
+
+def _repeats(first: torch.Tensor, second: torch.Tensor) -> int:
+    """Ids of ``second`` that ``first`` already returned (per query)."""
+    return int(((first[:, :, None] == second[:, None, :]) & (second[:, None, :] >= 0)).any(dim=1).sum())
+
+
+def _accept_mask(rng: np.random.Generator, n: int, selectivity: float) -> np.ndarray:
+    mask = np.zeros(n, bool)
+    mask[rng.choice(n, int(round(n * selectivity)), replace=False)] = True
+    return mask
+
+
+def _search_api_sq4(graph, exact, sq4, base: torch.Tensor, queries: torch.Tensor, gt: np.ndarray,
+                    dev: torch.device) -> tuple[dict, list]:
+    """The search API on the SQ4 200k graph (SQ4 first pass + exact rerank
+    at beam 100 unless said otherwise): filtered search at each of
+    :data:`SELECTIVITIES`, threshold search (exact first pass), resume
+    with and without the state, and multi-index search over
+    :data:`MULTI_SHARDS` SQ4 shards built from the same corpus.  Ground
+    truth is exact, on the card; recall over the first 1024 queries,
+    seconds over one 4096-query wave.  Returns the line and the failures."""
+    from jvector_tpu_torch.graph import resume, search
+    from jvector_tpu_torch.util.datasets import recall_at_k
+
+    n = base.shape[0]
+    q_gt, wave = queries[:GT_QUERIES], queries[:WAVE]
+    kw = dict(top_k=TOP_K, beam_width=API_BEAM, rerank_k=API_BEAM, reranker=exact)
+    line, fails = {"phase": "search_api", "graph": "sq4_path", "n": n, "dim": base.shape[1], "beam_width": API_BEAM,
+                   "filter_expand_per_iter": FILTER_EXPAND}, []
+
+    rng = np.random.default_rng(0)
+    line["filtered"] = {}
+    # four pops a step: a 1% filter on 200k nodes needs a few thousand pops
+    # to fill its accepted channel (rerank_k = 100), past 1000 single-pop steps
+    fkw = dict(kw, expand_per_iter=FILTER_EXPAND)
+    for sel in SELECTIVITIES:
+        m_np = _accept_mask(rng, n, sel)
+        mask = torch.as_tensor(m_np, device=dev)
+        fgt = _exact_topk(base, q_gt, TOP_K, mask)
+        reset_counts()
+        res, secs_gt = _timed(lambda: search(graph, sq4, q_gt, accept=mask, **fkw))
+        _, secs = _timed(lambda: search(graph, sq4, wave, accept=mask, **fkw))
+        ids = res.ids.cpu().numpy()
+        row = {"accepted": int(m_np.sum()), "path": "brute" if int(res.expanded_count.sum()) == 0 else "graph",
+               "recall": recall_at_k(ids, fgt, TOP_K), "holes": int((ids < 0).sum()),
+               "not_accepted": int((~m_np[np.maximum(ids, 0)] & (ids >= 0)).sum()),
+               "expanded_mean": float(res.expanded_count.float().mean()), "seconds_1024": secs_gt,
+               "seconds_4096": secs, "launches": read_counts()}
+        line["filtered"][str(sel)] = row
+        if row["holes"] or row["not_accepted"]:
+            fails.append(f"filtered {sel}: {row['holes']} holes, {row['not_accepted']} ids not accepted")
+        if sel >= 0.01 and row["recall"] < FILTER_FLOOR:
+            fails.append(f"filtered {sel}: recall@10 {row['recall']} < {FILTER_FLOOR}")
+        if row["accepted"] <= max(4 * API_BEAM, 512) and row["path"] != "brute":
+            fails.append(f"filtered {sel}: {row['accepted']} accepted nodes did not take the brute path")
+
+    # threshold: the median over the queries of the exact 10th-best score
+    gt_t = torch.as_tensor(gt[:, :TOP_K], device=dev)
+    gt_scores = exact.score(exact.prepare(q_gt), gt_t)
+    thr = float(torch.median(gt_scores[:, -1]))
+    free, s_free = _timed(lambda: search(graph, exact, q_gt, top_k=TOP_K, beam_width=API_BEAM))
+    got, s_thr = _timed(lambda: search(graph, exact, q_gt, top_k=TOP_K, beam_width=API_BEAM, threshold=thr))
+    above = gt_scores >= thr
+    kept = ((gt_t[:, :, None] == got.ids[:, None, :]).any(dim=2) & above).sum()
+    _, w_free = _timed(lambda: search(graph, exact, wave, top_k=TOP_K, beam_width=API_BEAM))
+    _, w_thr = _timed(lambda: search(graph, exact, wave, top_k=TOP_K, beam_width=API_BEAM, threshold=thr))
+    below = int((got.scores < thr)[got.ids >= 0].sum())
+    line["threshold"] = {
+        "first_pass": "exact", "threshold": thr, "results": int((got.ids >= 0).sum()), "below_threshold": below,
+        "retention": float(kept) / max(1, int(above.sum())),
+        "expansions_saved": 1.0 - float(got.expanded_count.sum()) / float(free.expanded_count.sum()),
+        "seconds_4096": w_thr, "seconds_4096_unthresholded": w_free,
+    }
+    if below:
+        fails.append(f"threshold: {below} results score below {thr}")
+
+    # resume: page 2 with and without the beam state; exact ranks 11-20
+    gt20 = _exact_topk(base, q_gt, 2 * TOP_K)[:, TOP_K:]
+    reset_counts()
+    page1, state = search(graph, sq4, q_gt, return_state=True, **kw)
+    with_state = resume(graph, sq4, q_gt, page1, top_k=TOP_K, reranker=exact, state=state)
+    without = resume(graph, sq4, q_gt, page1, top_k=TOP_K, reranker=exact)
+    line["resume"] = {
+        "recall_ranks_11_20": {"with_state": recall_at_k(with_state.ids.cpu().numpy(), gt20, TOP_K),
+                               "without_state": recall_at_k(without.ids.cpu().numpy(), gt20, TOP_K)},
+        "repeated_ids": {"with_state": _repeats(page1.ids, with_state.ids),
+                         "without_state": _repeats(page1.ids, without.ids)},
+        "marginal_expansions_mean": {
+            "with_state": float((with_state.expanded_count - page1.expanded_count).float().mean()),
+            "without_state": float(without.expanded_count.float().mean())},
+        "page1_expansions_mean": float(page1.expanded_count.float().mean()),
+    }
+    if any(line["resume"]["repeated_ids"].values()):
+        fails.append(f"resume repeated page-1 ids: {line['resume']['repeated_ids']}")
+    del state
+    line["multi_index"] = _multi_index(base, q_gt, wave, gt, fails)
+    return line, fails
+
+
+def _multi_index(base: torch.Tensor, q_gt: torch.Tensor, wave: torch.Tensor, gt: np.ndarray, fails: list) -> dict:
+    """:data:`MULTI_SHARDS` SQ4 shards of equal size built from the corpus
+    (``build_graph`` at the flagship config, SQ4 first pass, exact rerank),
+    merged by ``multi_search``: the stacked path (one wave over the shards'
+    tables laid end to end) and the sequential one with and without
+    ``rerank_floor``; recall against the ground truth over the union."""
+    from jvector_tpu_torch.graph import GraphConfig, build_graph
+    from jvector_tpu_torch.graph.multi import IndexShard, _can_stack, multi_search
+    from jvector_tpu_torch.quantization import ScalarQuantization4
+    from jvector_tpu_torch.util.datasets import recall_at_k
+
+    per = base.shape[0] // MULTI_SHARDS
+    reset_counts()
+    shards, t0 = [], time.time()
+    for s in range(MULTI_SHARDS):
+        part = base[s * per : (s + 1) * per]
+        g, ex = build_graph(part, "euclidean", GraphConfig(max_degree=32, ef_construction=100))
+        sq = ScalarQuantization4.compute(part)
+        codes = torch.nn.functional.pad(sq.encode(part), (0, 0, 0, g.capacity - per))
+        shards.append(IndexShard(graph=g, provider=sq.provider_for_graph(codes, g.base.neighbors, "euclidean"),
+                                 reranker=ex, id_offset=s * per))
+    torch.cuda.synchronize()
+    row = {"shards": MULTI_SHARDS, "shard_n": per, "build_seconds": time.time() - t0, "build_launches": read_counts(),
+           "stackable": _can_stack(shards)}
+    kw = dict(top_k=TOP_K, beam_width=API_BEAM, rerank_k=API_BEAM)
+    runs = {"stacked": dict(stacked=True), "sequential": dict(stacked=False),
+            "sequential_no_floor": dict(stacked=False, use_rerank_floor=False)}
+    for name, extra in runs.items():
+        res = multi_search(shards, q_gt, **kw, **extra)
+        _, secs = _timed(lambda: multi_search(shards, wave, **kw, **extra))
+        row[name] = {"recall": recall_at_k(res.ids.cpu().numpy(), gt, TOP_K), "seconds_4096": secs,
+                     "reranked_mean": float(res.reranked_count.float().mean()),
+                     "expanded_mean": float(res.expanded_count.float().mean())}
+    row["reranks_saved_by_floor"] = 1.0 - row["sequential"]["reranked_mean"] / row["sequential_no_floor"]["reranked_mean"]
+    for name in ("stacked", "sequential"):
+        if row[name]["recall"] < FILTER_FLOOR:
+            fails.append(f"multi-index {name}: recall@10 {row[name]['recall']} < {FILTER_FLOOR}")
+    if not row["stackable"]:
+        fails.append("the multi-index shards did not stack")
+    del shards
+    torch.cuda.empty_cache()
+    return row
 
 
 def _lut16_serve(graph, exact, base: torch.Tensor, queries: torch.Tensor, gt: np.ndarray, sim: str, beams: tuple,
@@ -1068,6 +1275,13 @@ def phase_sq4_path(n: int, dev: torch.device) -> dict:
         if launches[name] != n_waves:
             raise SystemExit(f"{name} launched {launches[name]} times over {n_waves} build waves")
 
+    # the search API on the same graph, before its SQ4 tables go
+    api, fails = _search_api_sq4(graph, exact, sq4, base, queries, gt, dev)
+    emit(api)
+    if fails:
+        raise SystemExit(f"search API on the SQ4 graph: {fails}")
+    result["search_api"] = api
+
     # the LUT16 serve over the same graph (experiments/search_sweep_1m.py's lut16_64)
     del sq4, codes
     torch.cuda.empty_cache()
@@ -1122,8 +1336,61 @@ def phase_micro(dev: torch.device) -> dict:
     return result
 
 
+def _refine_rescore(graph, build_prov, first, exact, base, queries, gt, cfg, recall_before: float,
+                    reference: tuple | None) -> tuple[dict, list]:
+    """The search API's refine part on the default-config graph:
+    ``refine_graph`` (PQ search and prune, K5 in its beam) and then
+    ``rescore_graph`` (``score_nodes`` through K5) over the whole base
+    layer in chunks of 1024, with recall@10 at beam 100 before and after
+    the refine, held to the ``reference`` ``(before, after)`` drop plus
+    :data:`REFINE_SLACK` where one is given.  Returns the line and the
+    failures."""
+    from jvector_tpu_torch.graph import search
+    from jvector_tpu_torch.graph.builder import refine_graph, rescore_graph
+    from jvector_tpu_torch.util.datasets import recall_at_k
+
+    n = base.shape[0]
+    reset_counts()
+    refined, refine_s = _timed(lambda: refine_graph(graph, build_prov, base, cfg, chunk=1024))
+    refine_launches = read_counts()
+    res = search(refined, first, queries, top_k=TOP_K, beam_width=100, rerank_k=100, reranker=exact)
+    after = recall_at_k(_check_result(res, queries.shape[0], "search on the refined graph"), gt, TOP_K)
+    reset_counts()
+    rescored, rescore_s = _timed(lambda: rescore_graph(refined, build_prov, chunk=1024))
+    rescore_launches = read_counts()
+    old, new, cnt = refined.base.neighbors[:n], rescored.base.neighbors[:n], refined.base.counts[:n]
+    valid = torch.arange(old.shape[1], device=old.device)[None, :] < cnt[:, None]
+    big = torch.iinfo(torch.int32).max
+
+    def id_sets(ids):
+        return torch.sort(torch.where(valid, ids, big), dim=1).values
+
+    sc = rescored.base.scores[:n]
+    unsorted = int(((sc[:, 1:] > sc[:, :-1]) & valid[:, 1:]).any(dim=1).sum())
+    changed_sets = int((id_sets(old) != id_sets(new)).any(dim=1).sum())
+    line = {"phase": "search_api", "graph": "default_config", "n": n, "chunk": 1024,
+            "recall_100": {"before_refine": recall_before, "after_refine": after},
+            "average_degree": {"before": graph.average_degree(), "after": refined.average_degree()},
+            "refine_seconds": refine_s, "rescore_seconds": rescore_s,
+            "rows_with_changed_id_sets": changed_sets, "rows_unsorted": unsorted,
+            "launches": {"refine": refine_launches, "rescore": rescore_launches}}
+    fails = []
+    if reference is not None:
+        allowed = max(0.0, reference[0] - reference[1]) + REFINE_SLACK
+        line["jax_recall_100"] = {"before_refine": reference[0], "after_refine": reference[1]}
+        line["allowed_drop"] = allowed
+        if recall_before - after > allowed:
+            fails.append(f"refine lowered recall@10 from {recall_before} to {after}, more than {allowed}")
+    if changed_sets or unsorted:
+        fails.append(f"rescore changed {changed_sets} rows' id sets or left {unsorted} rows unsorted")
+    for name, counts in line["launches"].items():
+        if counts["adc_score_kernel"] == 0:
+            fails.append(f"{name} launched no K5")
+    return line, fails
+
+
 def phase_default_config(n: int, dev: torch.device, n_queries: int, n_clusters: int, gt_queries: int,
-                         timed_beams: tuple) -> dict:
+                         timed_beams: tuple, refine: bool = False) -> dict:
     """Upstream JVector's default configuration end to end (see the module
     docstring); returns the result line."""
     from jvector_tpu_torch.graph import (
@@ -1215,6 +1482,15 @@ def phase_default_config(n: int, dev: torch.device, n_queries: int, n_clusters: 
         raise SystemExit(f"K5 was not launched in the build or in serving: {result['launches']}")
     if graph.num_levels > 1 and (build_launches["fused_update_inplace"] == 0):
         raise SystemExit("the hierarchy's sub-builds launched no K2")
+    if refine:
+        del fused
+        torch.cuda.empty_cache()
+        line, fails = _refine_rescore(graph, build_prov, first, exact, base, queries[:gt_queries], gt, cfg,
+                                      recalls[100], JAX_REFINE_200K if n == EARLIER_N else None)
+        emit(line)
+        if fails:
+            raise SystemExit(f"search API on the default-config graph: {fails}")
+        result["refine"] = line
     return result
 
 
@@ -1329,6 +1605,89 @@ def phase_robustness(n: int, n_adv: int, dev: torch.device) -> dict:
     return result
 
 
+def _peak_split(fn, top: int = 8) -> dict:
+    """The device allocations live at the peak of ``fn()``, by tensor: the
+    caching allocator's trace (``torch.cuda.memory._record_memory_history``)
+    replayed to the moment its live total peaks; each allocation named by
+    the innermost frame in the port.  Allocations made before ``fn`` (the
+    resident index) are not in the trace."""
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(enabled="all", stacks="python", max_entries=2_000_000)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    live, total, peak, at_peak = {}, 0, 0, {}
+    for ev in snap["device_traces"][torch.cuda.current_device()]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            total += ev["size"]
+            if total > peak:
+                peak, at_peak = total, dict(live)
+        elif ev["action"] in ("free_requested", "free_completed") and ev["addr"] in live:
+            total -= live.pop(ev["addr"])["size"]
+
+    def where(ev):
+        frames = [f for f in ev.get("frames", []) if "jvector_tpu_torch" in f["filename"]]
+        f = frames[0] if frames else (ev.get("frames") or [{"filename": "?", "line": 0, "name": "?"}])[0]
+        return f"{f['filename'].split('jvector_tpu_torch/')[-1]}:{f['line']} {f['name']}"
+
+    by_site = {}
+    for ev in at_peak.values():
+        by_site[where(ev)] = by_site.get(where(ev), 0) + ev["size"]
+    largest = sorted(at_peak.values(), key=lambda e: -e["size"])[:top]
+    return {"transient_peak_mb": peak / 2**20, "allocations_at_peak": len(at_peak),
+            "largest_mb": [[where(e), e["size"] / 2**20] for e in largest],
+            "by_site_mb": dict(sorted(((k, v / 2**20) for k, v in by_site.items()), key=lambda kv: -kv[1])[:top])}
+
+
+def _host_search_api(hg, ds, base: np.ndarray, kw: dict, dev: torch.device) -> tuple[dict, list]:
+    """The search API on the host-served index: a filtered search at
+    selectivity 0.01 (over the brute cutoff: the streamed in-loop path)
+    and a threshold search at the median over the queries of the exact
+    10th-best score, against exact ground truth on the card."""
+    from jvector_tpu_torch.graph import ExactScoreProvider
+    from jvector_tpu_torch.util.datasets import recall_at_k
+
+    n = base.shape[0]
+    base_t, q_t = torch.as_tensor(base, device=dev), torch.as_tensor(ds.queries, device=dev)
+    m_np = _accept_mask(np.random.default_rng(1), n, 0.01)
+    fgt = _exact_topk(base_t, q_t, TOP_K, torch.as_tensor(m_np, device=dev))
+    exact = ExactScoreProvider(vectors=base_t)
+    gt_scores = exact.score(exact.prepare(q_t), torch.as_tensor(ds.ground_truth[:, :TOP_K], device=dev))
+    thr = float(torch.median(gt_scores[:, -1]))
+    del base_t, exact
+    torch.cuda.empty_cache()
+    reset_counts()
+    res, secs = _timed(lambda: hg.search(ds.queries, accept=m_np, max_iters=400, **kw))
+    ids = res.ids.cpu().numpy()
+    got, t_secs = _timed(lambda: hg.search(ds.queries, threshold=thr, **kw))
+    below = int((got.scores < thr)[got.ids >= 0].sum())
+    above = gt_scores >= thr
+    kept = ((torch.as_tensor(ds.ground_truth[:, :TOP_K], device=dev)[:, :, None] == got.ids[:, None, :]).any(dim=2)
+            & above).sum()
+    line = {"phase": "search_api", "graph": "ltm_host_served", "n": n, "beam_width": kw["beam_width"],
+            "expand": kw["expand"],
+            "filtered_0.01": {"accepted": int(m_np.sum()), "recall": recall_at_k(ids, fgt, TOP_K),
+                              "holes": int((ids < 0).sum()),
+                              "not_accepted": int((~m_np[np.maximum(ids, 0)] & (ids >= 0)).sum()),
+                              "expanded_mean": float(res.expanded_count.float().mean()), "seconds_1024": secs},
+            "threshold": {"threshold": thr, "results": int((got.ids >= 0).sum()), "below_threshold": below,
+                          "retention": float(kept) / max(1, int(above.sum())), "seconds_1024": t_secs},
+            "launches": read_counts()}
+    f = line["filtered_0.01"]
+    fails = []
+    if f["holes"] or f["not_accepted"]:
+        fails.append(f"host filtered: {f['holes']} holes, {f['not_accepted']} ids not accepted")
+    if f["recall"] < HOST_RECALL_FLOOR:
+        fails.append(f"host filtered recall@10 {f['recall']} < {HOST_RECALL_FLOOR}")
+    if below:
+        fails.append(f"host threshold: {below} results score below {thr}")
+    return line, fails
+
+
 def phase_ltm_path(n: int, dev: torch.device) -> dict:
     """The larger-than-memory path (see the module docstring); returns the
     result line."""
@@ -1401,6 +1760,8 @@ def phase_ltm_path(n: int, dev: torch.device) -> dict:
         host_bytes = sum(a.nbytes for a in (hg.neighbors, hg.fused_packed, hg.fused_w2, hg.codes_packed,
                                             hg.node_const, hg.rerank_store.vectors))
         hbm_mb = hg.hbm_bytes(GT_QUERIES, HOST_BEAM, HOST_EXPAND) / 2**20
+        peak_split = _peak_split(lambda: hg.search(ds.queries, **kw).ids.cpu())
+        host_api, host_fails = _host_search_api(hg, ds, base, kw, dev)
 
         back = load_index(path).graph_to_device(dev)
         round_trip = (
@@ -1430,7 +1791,12 @@ def phase_ltm_path(n: int, dev: torch.device) -> dict:
                   "hbm_bytes_mb": hbm_mb, "host_array_gb": host_bytes / 2**30},
         "round_trip_exact": round_trip, "pq_ltm": pq,
     }
+    result["serve"]["peak_split"] = peak_split
     emit(result)
+    emit(host_api)
+    if host_fails:
+        raise SystemExit(f"search API on the host-served index: {host_fails}")
+    result["search_api"] = host_api
     if regime != "packed":
         raise SystemExit(f"the LTM build took the {regime} regime, not packed")
     if save != "host":
@@ -1450,7 +1816,7 @@ def phase_ltm_path(n: int, dev: torch.device) -> dict:
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--n", type=int, default=1_000_000,
+    p.add_argument("--n", type=int, default=500_000,
                    help="corpus size of the mips-96d path; the other paths run at min(n, 200,000)")
     args = p.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1472,7 +1838,7 @@ def main() -> None:
     if any(abs(d) > PARITY_SLACK for d in off.values()):
         raise SystemExit(f"20k default-config recall differs from the JAX figures by more than {PARITY_SLACK}: {off}")
     big = phase_default_config(n_earlier, dev, n_queries=N_QUERIES, n_clusters=max(64, n_earlier // 500),
-                               gt_queries=GT_QUERIES, timed_beams=(20, 100))
+                               gt_queries=GT_QUERIES, timed_beams=(20, 100), refine=True)
     if n_earlier == EARLIER_N and big["recall"]["100"] < SANITY_FLOOR_200K:
         raise SystemExit(f"recall@10 at beam 100 is {big['recall']['100']} < {SANITY_FLOOR_200K}")
     lut16_20k = phase_lut16_parity(dev)
@@ -1481,13 +1847,15 @@ def main() -> None:
     main_path = {"packed_adj_update_inplace": ("sq4_path",), "fused_update_inplace": ("sq4_path",),
                  "packed_adj_only_update_inplace": ("ltm_build",),
                  "scatter_rows3_inplace": ("mips_96d_build",), "scatter_rows_inplace": (), "scatter_slots_inplace": (),
-                 "adc_score_kernel": ("default_config_build", "default_config_serve"),
+                 "adc_score_kernel": ("default_config_build", "default_config_serve", "default_config_refine",
+                                      "default_config_rescore"),
                  "adc16_score_kernel": ("lut16_serve", "micro")}
     mips, adv = robust["mips_96d"]["launches"], robust["clustered_adversarial"]["launches"]
+    api = sq4["search_api"]
     for k in kernels:
         name = k["name"]
         by_path = {"mips_96d_build": mips["build"][name], "mips_96d_serve": mips["serve"][name],
-                   "lut16_mips_1m": mips["lut16"][name],
+                   "lut16_mips_96d": mips["lut16"][name],
                    "adversarial_build": adv["build"][name], "adversarial_serve": adv["serve"][name],
                    "sq4_path": sq4["launches"][name], "lut16_serve": sq4["lut16"]["launches"][name],
                    "lut16_20k": lut16_20k["launches"][name], "micro": micro["launches"][name],
@@ -1495,7 +1863,12 @@ def main() -> None:
                    "default_config_serve": big["launches"]["serve"][name],
                    "ltm_build": ltm["launches"]["build"][name],
                    "ltm_serve": ltm["launches"]["serve"][name],
-                   "ltm_pq_20k": ltm["launches"]["pq_20k"][name]}
+                   "ltm_pq_20k": ltm["launches"]["pq_20k"][name],
+                   "default_config_refine": big["refine"]["launches"]["refine"][name],
+                   "default_config_rescore": big["refine"]["launches"]["rescore"][name],
+                   "search_api_filtered": sum(r["launches"][name] for r in api["filtered"].values()),
+                   "search_api_multi_index_build": api["multi_index"]["build_launches"][name],
+                   "search_api_host": ltm["search_api"]["launches"][name]}
         k["launches"] = sum(by_path[path] for path in main_path[name])
         k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}), flush=True)

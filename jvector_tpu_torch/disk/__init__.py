@@ -3,8 +3,8 @@
 (``format``), the stream build (``ltm``), the host rerank tier
 (``host_tier``) and bounded-memory host serving (``host_graph``).
 
-Not ported yet (ROADMAP queue 1 item 12): ``device_tier``, compaction,
-filtered host search and ``ShardedHostIndex``.
+Not ported yet: ``device_tier`` and compaction (ROADMAP queue 1 item 6),
+``ShardedHostIndex`` (item 7).
 """
 
 from jvector_tpu_torch.disk.format import (

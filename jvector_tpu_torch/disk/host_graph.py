@@ -20,8 +20,15 @@ composes on top.  Hierarchical indexes keep their small upper levels and
 those levels' codes on the device and descend there; only the base layer
 streams.
 
-Not ported yet (ROADMAP queue 1 item 12): filtered search (``accept``),
-``threshold`` and ``ShardedHostIndex``; they raise ``NotImplementedError``.
+``accept`` runs the in-loop filtered search of the in-memory searcher: the
+beam traverses accepted and other nodes alike, accepted discoveries gather
+in a top-K channel, popped slots leave the beam, and a per-query bitset of
+popped nodes on the host keeps a purged node from coming back.  A small
+accepted set is scored exactly instead (``accept_brute_cutoff``).
+``threshold`` drops results below the similarity.
+
+Not ported yet (ROADMAP queue 1 item 7): ``ShardedHostIndex``; it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,14 +42,23 @@ from jvector_tpu_torch.disk.format import FeatureId, _read_l0_neighbors, load_in
 from jvector_tpu_torch.disk.host_tier import HostVectorStore
 from jvector_tpu_torch.graph.hierarchy import slots_for
 from jvector_tpu_torch.graph.index import NEG_INF
-from jvector_tpu_torch.graph.searcher import BeamState, SearchResult, _dedup_new, _history_len, _merge_beam, _top_e
-from jvector_tpu_torch.graph.searcher import search_layer
+from jvector_tpu_torch.graph.diversity import dedup_sorted_desc
+from jvector_tpu_torch.graph.searcher import (
+    BeamState,
+    SearchResult,
+    _dedup_new,
+    _history_len,
+    _merge_beam,
+    _top_e,
+    _top_k_stable,
+    search_layer,
+)
 from jvector_tpu_torch.ops.similarity import SimilarityFunction, normalize_score
 from jvector_tpu_torch.quantization.sq import group_dims, unpack_nibble_rows_grouped
 from jvector_tpu_torch.util.device import resolve_device
 from jvector_tpu_torch.util.native import gather_rows
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 12: filtered host search and ShardedHostIndex)"
+_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 7: ShardedHostIndex)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,19 +122,38 @@ def _host_step(
     k_rows: torch.Tensor,  # uint8 [Q, E, R, MP]
     w2_rows: torch.Tensor,  # float32 [Q, E, R]
     expand: int,
+    acc_bits: torch.Tensor | None = None,  # bool [Q, E, R]: filtered search
 ) -> tuple[BeamState, torch.Tensor]:
-    """Merge the streamed expansion, then pop the next E candidates."""
+    """Merge the streamed expansion, then pop the next E candidates.
+
+    Filtered (``acc_bits``, the accept bits of the streamed neighbors, and
+    the state's result channel): accepted discoveries join the channel,
+    deduplicated by id (purged nodes may come back past the history ring);
+    only candidates that can beat the worst accepted result are popped; and
+    popped slots leave the beam."""
     Q, E, R = nbrs.shape
     flat_nbrs = nbrs.reshape(Q, E * R)
     valid = (flat_nbrs >= 0) & (sel_prev >= 0).repeat_interleave(R, dim=1)
     flat_nbrs = torch.where(valid, flat_nbrs, -1)
     fresh = valid & _dedup_new(flat_nbrs, state.ids, state.history)
     scores = scorer.score_rows(qstate, k_rows.reshape(Q, E * R, -1), w2_rows.reshape(Q, E * R))
+    res_ids, res_scores = state.res_ids, state.res_scores
+    if acc_bits is not None:
+        acc = fresh & acc_bits.reshape(Q, E * R)
+        k = res_ids.shape[1]
+        d_ids, d_sc = dedup_sorted_desc(
+            torch.cat([res_ids, torch.where(acc, flat_nbrs, -1)], dim=1),
+            torch.cat([res_scores, torch.where(acc, scores, NEG_INF)], dim=1),
+        )
+        res_ids, res_scores = d_ids[:, :k], d_sc[:, :k]
     ids2, scores2, expanded2 = _merge_beam(
         state.ids, state.scores, state.expanded, torch.where(fresh, flat_nbrs, -1), torch.where(fresh, scores, NEG_INF)
     )
     # pop phase
-    top_scores, sel_idx = _top_e(torch.where(expanded2, NEG_INF, scores2), expand)
+    poppable = ~expanded2
+    if acc_bits is not None:
+        poppable &= scores2 > res_scores[:, -1:]
+    top_scores, sel_idx = _top_e(torch.where(poppable, scores2, NEG_INF), expand)
     active = top_scores > NEG_INF
     sel_ids = torch.where(active, torch.gather(ids2, 1, sel_idx), -1)
     pos_l = torch.arange(ids2.shape[1], device=ids2.device)
@@ -126,16 +161,38 @@ def _host_step(
     history = state.history
     pos = (state.iters * expand) % history.shape[1]
     history[:, pos : pos + expand] = sel_ids
+    if acc_bits is not None:  # popped slots leave the frontier
+        ids2, scores2, expanded2 = torch.where(hit, -1, ids2), torch.where(hit, NEG_INF, scores2), expanded2 & ~hit
+    else:
+        expanded2 = expanded2 | hit
     new_state = BeamState(
         ids=ids2,
         scores=scores2,
-        expanded=expanded2 | hit,
+        expanded=expanded2,
         history=history,
         visited_count=state.visited_count + fresh.sum(dim=1, dtype=torch.int32),
         expanded_count=state.expanded_count + active.sum(dim=1, dtype=torch.int32),
         iters=state.iters + 1,
+        res_ids=res_ids,
+        res_scores=res_scores,
     )
     return new_state, sel_ids
+
+
+def _screen_popped(popped: np.ndarray, sel_np: np.ndarray, nbrs_np: np.ndarray, accept: np.ndarray) -> np.ndarray:
+    """Filtered host search: mark this round's pops in the per-query popped
+    bitset ``[q, N/8]``, drop streamed neighbors already popped (purged from
+    the frontier, they must never return), in place, and return the accept
+    bits of the rest ``[q, E, R]``."""
+    qn = sel_np.shape[0]
+    qi = np.repeat(np.arange(qn), sel_np.shape[1])
+    pops = sel_np.reshape(-1)
+    ok = pops >= 0
+    np.bitwise_or.at(popped, (qi[ok], pops[ok] >> 3), np.uint8(1) << (pops[ok] & 7).astype(np.uint8))
+    safe = np.maximum(nbrs_np, 0)
+    seen = (popped[np.arange(qn)[:, None, None], safe >> 3] >> (safe & 7)) & 1
+    nbrs_np[(seen != 0)] = -1
+    return accept[np.maximum(nbrs_np, 0)] & (nbrs_np >= 0)
 
 
 class _Lane:
@@ -173,18 +230,20 @@ class _Lane:
             return self.sel_host.numpy()
         return self.sel.numpy()
 
-    def gather(self, index: "HostGraphIndex", safe: np.ndarray, device) -> tuple[torch.Tensor, ...]:
-        """The expanded nodes' adjacency, fused code and w2 rows, on ``device``."""
+    def gather(self, index: "HostGraphIndex", safe: np.ndarray, device, screen=None) -> tuple[torch.Tensor, ...]:
+        """The expanded nodes' adjacency, fused code and w2 rows, on
+        ``device``; ``screen(nbrs [q, E, R])`` may edit the adjacency rows on
+        the host before they go up, and its result (the accept bits) goes
+        up as a fourth tensor."""
         qn, e, r = self.shape
         srcs = (index.neighbors, index.fused_packed, index.fused_w2)
-        if self.cuda:
-            outs = []
-            for src, buf in zip(srcs, self.bufs):
-                gather_rows(src, safe, out=buf.numpy())
-                outs.append(buf.to(device, non_blocking=True))
-        else:
-            outs = [torch.from_numpy(gather_rows(src, safe)) for src in srcs]
-        return outs[0].reshape(qn, e, r), outs[1].reshape(qn, e, r, -1), outs[2].reshape(qn, e, r)
+        outs, extra = [], None
+        for i, src in enumerate(srcs):
+            rows = gather_rows(src, safe, out=self.bufs[i].numpy() if self.cuda else None)
+            if i == 0 and screen is not None:
+                extra = torch.as_tensor(screen(rows.reshape(qn, e, r)), device=device)
+            outs.append(self.bufs[i].to(device, non_blocking=True) if self.cuda else torch.from_numpy(rows))
+        return outs[0].reshape(qn, e, r), outs[1].reshape(qn, e, r, -1), outs[2].reshape(qn, e, r), extra
 
 
 @dataclasses.dataclass
@@ -288,13 +347,48 @@ class HostGraphIndex:
             best = lv["ids"][torch.clamp(beam.ids[:, 0], 0, lv["ids"].shape[0] - 1).long()]
         return best.cpu().numpy().astype(np.int32)
 
-    def hbm_bytes(self, n_queries: int, beam_width: int, expand: int) -> int:
-        """Device working-set estimate: beam state + one streamed expansion."""
+    def hbm_bytes(self, n_queries: int, beam_width: int, expand: int, pipeline: int = 2) -> int:
+        """Device working-set estimate: beam state, one streamed expansion,
+        and that expansion's scoring transient, which the JAX package's
+        formula leaves out: one lane's candidates unpacked to int32 levels
+        and their float32 copy (``SQ4StreamScorer.score_rows``), 8 bytes a
+        dimension, 16x the packed rows (the largest allocations at the
+        serve's device peak, ``chip_smoke.py``'s ``peak_split``)."""
         q, lw = n_queries, beam_width
         r = self.neighbors.shape[1]
         mp = self.fused_packed.shape[1] // r
         t = 256  # history ring order of magnitude
-        return q * lw * (4 + 4 + 1) + q * t * 4 + q * expand * r * (4 + mp + 4)
+        lane = -(-q // max(1, min(pipeline, q)))
+        return q * lw * (4 + 4 + 1) + q * t * 4 + q * expand * r * (4 + mp + 4) + lane * expand * r * 2 * mp * 8
+
+    def _filtered_brute(self, queries: torch.Tensor, top_k: int, acc_ids: np.ndarray, beam_width: int, rerank,
+                        threshold: float) -> SearchResult:
+        """Exact evaluation of a small accepted set: one host gather of the
+        A accepted code rows, one scoring pass on the device, the optional
+        rerank."""
+        dev = self.device
+        scorer = self._scorer()
+        Q = queries.shape[0]
+        A = 1 << max(4, int(max(acc_ids.size, top_k) - 1).bit_length())
+        ids = np.full(A, -1, np.int32)
+        ids[: acc_ids.size] = acc_ids
+        safe = np.maximum(ids, 0)
+        k_rows = torch.as_tensor(gather_rows(self.codes_packed, safe), device=dev)
+        w2 = torch.as_tensor(np.ascontiguousarray(self.node_const[safe]), device=dev)
+        sc = scorer.score_rows(scorer.prepare(queries), k_rows[None].expand(Q, -1, -1), w2[None].expand(Q, -1))
+        ids_t = torch.as_tensor(ids, device=dev)
+        sc = torch.where((ids_t >= 0)[None], sc, NEG_INF)
+        k1 = min(max(top_k, beam_width if rerank is not None else top_k), A)
+        approx, idx = _top_k_stable(sc, k1)
+        pick = torch.where(approx > NEG_INF, torch.gather(ids_t[None].expand(Q, A), 1, idx), -1)
+        res = SearchResult(
+            ids=pick, scores=approx, visited_count=torch.full((Q,), acc_ids.size, dtype=torch.int32, device=dev),
+            expanded_count=torch.zeros((Q,), dtype=torch.int32, device=dev),
+            reranked_count=torch.zeros((Q,), dtype=torch.int32, device=dev), approx_scores=approx,
+        )
+        if rerank is not None:
+            return rerank.rerank(queries, res, top_k)
+        return res._replace(ids=pick[:, :top_k], scores=approx[:, :top_k], approx_scores=approx[:, :top_k])
 
     def search(
         self,
@@ -305,8 +399,8 @@ class HostGraphIndex:
         max_iters: int = 200,
         rerank=None,  # HostVectorStore | None (default: the file's inline vectors) | False for one pass
         pipeline: int = 2,
-        accept: np.ndarray | None = None,
-        threshold: float = 0.0,
+        accept: np.ndarray | None = None,  # bool [N] acceptOrds mask
+        threshold: float = 0.0,  # drop results scoring below this similarity
         accept_brute_cutoff: int | None = None,
         hierarchy_beam: int = 1,
     ) -> SearchResult:
@@ -314,22 +408,35 @@ class HostGraphIndex:
 
         ``pipeline`` splits the wave into that many phase-shifted lanes so
         the host's row gathers overlap the card's steps; ``pipeline=1`` is
-        the serial loop.  Results do not depend on it.
+        the serial loop.  Results do not depend on it.  With ``accept``,
+        at most ``accept_brute_cutoff`` accepted nodes (default ``max(4 *
+        beam, 512)``) are scored exactly; more run the in-loop filtered
+        search, whose accepted channel holds ``max(top_k, beam)`` results.
         """
-        if accept is not None or accept_brute_cutoff is not None:
-            raise NotImplementedError(f"HostGraphIndex.search(accept=...) {_NOT_PORTED}")
-        if threshold > 0.0:
-            raise NotImplementedError(f"HostGraphIndex.search(threshold=...) {_NOT_PORTED}")
         if rerank is None:
             rerank = self.rerank_store
         elif rerank is False:
             rerank = None
         dev = self.device
-        scorer = self._scorer()
         queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
-        Q, L = queries.shape[0], beam_width
-        T = _history_len(expand, max_iters, L)
         n_rows, R = self.neighbors.shape
+        acc_full = None
+        if accept is not None:
+            acc_full = np.zeros(n_rows, bool)
+            a = np.asarray(accept, bool)
+            acc_full[: a.shape[0]] = a
+            if self.deleted is not None:
+                acc_full &= ~np.asarray(self.deleted)
+            acc_ids = np.flatnonzero(acc_full)
+            cutoff = max(4 * beam_width, 512) if accept_brute_cutoff is None else accept_brute_cutoff
+            if acc_ids.size <= cutoff:
+                return _apply_threshold(self._filtered_brute(queries, top_k, acc_ids, beam_width, rerank, threshold),
+                                        threshold)
+        filtered = acc_full is not None
+        scorer = self._scorer()
+        Q, L = queries.shape[0], beam_width
+        T = _history_len(expand, max_iters, 2 * L if filtered else L)
+        K = max(top_k, beam_width)  # the filtered result channel's width
         mp = self.fused_packed.shape[1] // R
         n_lanes = max(1, min(pipeline, Q))
         cuts = [Q * i // n_lanes for i in range(n_lanes + 1)]  # balanced contiguous lanes
@@ -358,12 +465,28 @@ class HostGraphIndex:
                 visited_count=torch.ones((qn,), dtype=torch.int32, device=dev),
                 expanded_count=torch.zeros((qn,), dtype=torch.int32, device=dev), iters=0,
             )
+            acc0 = None
+            if filtered:
+                # the accepted channel, seeded with each query's entry when it
+                # passes; the popped set is exact (N/8 bytes a query): a
+                # filtered search runs far past the history ring, and a
+                # forgotten pop that re-enters the purged frontier would be
+                # popped again and again
+                entry_ok = torch.as_tensor(acc_full[e_np], device=dev)
+                res_ids = torch.full((qn, K), -1, dtype=torch.int32, device=dev)
+                res_ids[:, 0] = torch.where(entry_ok, e_ids, -1)
+                res_scores = torch.full((qn, K), NEG_INF, device=dev)
+                res_scores[:, 0] = torch.where(entry_ok, e_score[:, 0], NEG_INF)
+                ln.state = ln.state._replace(res_ids=res_ids, res_scores=res_scores)
+                ln.popped = np.zeros((qn, (n_rows + 7) // 8), np.uint8)
+                ln.popped[np.arange(qn), e_np >> 3] |= np.uint8(1) << (e_np & 7).astype(np.uint8)
+                acc0 = torch.zeros((qn, expand, R), dtype=torch.bool, device=dev)
             # prologue: merge nothing, pop the entry
             ln.state, sel = _host_step(
                 ln.state, scorer, ln.qstate, torch.full((qn, expand), -1, dtype=torch.int32, device=dev),
                 torch.full((qn, expand, R), -1, dtype=torch.int32, device=dev),
                 torch.zeros((qn, expand, R, mp), dtype=torch.uint8, device=dev),
-                torch.zeros((qn, expand, R), device=dev), expand,
+                torch.zeros((qn, expand, R), device=dev), expand, acc0,
             )
             ln.post(sel)
             lanes.append(ln)
@@ -381,31 +504,49 @@ class HostGraphIndex:
                 # the host's "disk read": one contiguous row per expansion;
                 # the other lane's step runs on the card meanwhile
                 safe = np.minimum(np.maximum(sel_np, 0), n_rows - 1).reshape(-1)
-                nbrs, rows, w2 = ln.gather(self, safe, dev)
-                ln.state, sel = _host_step(ln.state, scorer, ln.qstate, ln.sel, nbrs, rows, w2, expand)
+                screen = None
+                if filtered:
+                    def screen(nbrs_np, ln=ln, sel_np=sel_np):
+                        return _screen_popped(ln.popped, sel_np, nbrs_np, acc_full)
+                nbrs, rows, w2, acc = ln.gather(self, safe, dev, screen)
+                ln.state, sel = _host_step(ln.state, scorer, ln.qstate, ln.sel, nbrs, rows, w2, expand, acc)
                 ln.post(sel)
 
         def cat(field):
             return torch.cat([getattr(ln.state, field) for ln in lanes])
 
-        ids, scores = cat("ids"), cat("scores")
-        if self.deleted is not None and self.deleted.any():
-            dead = torch.as_tensor(np.array(self.deleted), device=dev)[torch.clamp(ids, min=0).long()] & (ids >= 0)
-            ids = torch.where(dead, -1, ids)
-            scores = torch.where(dead, NEG_INF, scores)
-        order = torch.argsort(-scores, dim=1, stable=True)
-        k_out = beam_width if rerank is not None else top_k
-        out_ids = torch.gather(ids, 1, order)[:, :k_out]
-        out_scores = torch.gather(scores, 1, order)[:, :k_out]
+        if filtered:
+            # results come from the accepted channel (sorted, deleted nodes
+            # already folded into the mask)
+            ids, scores = cat("res_ids"), cat("res_scores")
+            k_out = K if rerank is not None else top_k
+        else:
+            ids, scores = cat("ids"), cat("scores")
+            if self.deleted is not None and self.deleted.any():
+                dead = torch.as_tensor(np.array(self.deleted), device=dev)[torch.clamp(ids, min=0).long()] & (ids >= 0)
+                ids = torch.where(dead, -1, ids)
+                scores = torch.where(dead, NEG_INF, scores)
+            order = torch.argsort(-scores, dim=1, stable=True)
+            ids, scores = torch.gather(ids, 1, order), torch.gather(scores, 1, order)
+            k_out = beam_width if rerank is not None else top_k
         approx = SearchResult(
-            ids=out_ids, scores=out_scores, visited_count=cat("visited_count"),
+            ids=ids[:, :k_out], scores=scores[:, :k_out], visited_count=cat("visited_count"),
             expanded_count=cat("expanded_count"),
-            reranked_count=torch.zeros((Q,), dtype=torch.int32, device=dev), approx_scores=out_scores,
+            reranked_count=torch.zeros((Q,), dtype=torch.int32, device=dev), approx_scores=scores[:, :k_out],
         )
         if rerank is not None:
-            return rerank.rerank(queries, approx, top_k)
-        return approx._replace(ids=out_ids[:, :top_k], scores=out_scores[:, :top_k],
-                               approx_scores=out_scores[:, :top_k])
+            return _apply_threshold(rerank.rerank(queries, approx, top_k), threshold)
+        return _apply_threshold(approx._replace(ids=ids[:, :top_k], scores=scores[:, :top_k],
+                                                approx_scores=scores[:, :top_k]), threshold)
+
+
+def _apply_threshold(res: SearchResult, threshold: float) -> SearchResult:
+    """The threshold search's result contract: results below the similarity
+    are dropped (the host loop ends on an exhausted frontier either way)."""
+    if threshold <= 0.0:
+        return res
+    ok = res.scores >= threshold
+    return res._replace(ids=torch.where(ok, res.ids, -1), scores=torch.where(ok, res.scores, NEG_INF))
 
 
 class ShardedHostIndex:

@@ -1,6 +1,9 @@
 """Graph core: graph data model, score providers (exact, SQ4, PQ-ADC,
-LUT16), robust prune, query-wave beam search, the wave builders and the
-hierarchy (PyTorch counterpart of ``jvector_tpu.graph``)."""
+LUT16), robust prune, query-wave beam search (filtered, threshold and
+resumable), the wave builders and the hierarchy (PyTorch counterpart of
+``jvector_tpu.graph``).  ``builder.refine_graph``, ``builder.rescore_graph``
+and ``multi.multi_search`` are imported from their modules, as in the JAX
+package."""
 
 from jvector_tpu_torch.graph.builder import GraphIndexBuilder, build_graph
 from jvector_tpu_torch.graph.index import GraphConfig, GraphIndex
@@ -14,7 +17,7 @@ from jvector_tpu_torch.graph.score import (
     build_fused_codes_lut16,
     build_fused_sq4,
 )
-from jvector_tpu_torch.graph.searcher import BeamState, SearchResult, search
+from jvector_tpu_torch.graph.searcher import BeamState, SearchResult, resume, search
 
 __all__ = [
     "GraphIndex",
@@ -28,6 +31,7 @@ __all__ = [
     "build_fused_codes_lut16",
     "build_fused_sq4",
     "search",
+    "resume",
     "SearchResult",
     "BeamState",
     "GraphIndexBuilder",

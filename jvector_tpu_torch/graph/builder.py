@@ -65,7 +65,7 @@ from jvector_tpu_torch.graph.score import (
     exact_score_rows,
     sq4_aug_rows,
 )
-from jvector_tpu_torch.graph.searcher import _repack_tail, search_layer
+from jvector_tpu_torch.graph.searcher import _repack_tail, _top_k_stable, search_layer
 from jvector_tpu_torch.ops.kernels.packed_adj import packed_adj_only_update_inplace, packed_adj_update_inplace
 from jvector_tpu_torch.ops.kernels.scatter_rows import fused_update_inplace, scatter_rows3_inplace
 from jvector_tpu_torch.ops.similarity import SimilarityFunction, normalize_score, pairwise_raw
@@ -77,12 +77,6 @@ _BIG = 2**30
 # Pallas chunk); kept so both packages take the packed path on the same
 # configurations
 _PATCH_ALIGN = 256
-
-
-def _top_k_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last dim, lowest index first among ties (``lax.top_k``)."""
-    order = torch.argsort(x, dim=-1, descending=True, stable=True)[..., :k]
-    return torch.gather(x, -1, order), order
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -508,6 +502,17 @@ def _wave_update_fused(
     return _advance(graph, layer, wave_ids)
 
 
+def _write_rows(layer: GraphLayer, start: int, keep: torch.Tensor, row_ids, row_scores, counts=None) -> None:
+    """Write rows ``[start, start + B)`` where ``keep``; rows past the
+    capacity drop."""
+    k = min(start + keep.shape[0], layer.neighbors.shape[0]) - start
+    keep, sl = keep[:k], slice(start, start + k)
+    layer.neighbors[sl] = torch.where(keep[:, None], row_ids[:k], layer.neighbors[sl])
+    layer.scores[sl] = torch.where(keep[:, None], row_scores[:k], layer.scores[sl])
+    if counts is not None:
+        layer.counts[sl] = torch.where(keep, counts[:k].to(torch.int32), layer.counts[sl])
+
+
 def _enforce_chunk(graph: GraphIndex, provider, start: int, config: GraphConfig, chunk: int) -> GraphIndex:
     """Prune the rows ``[start, start + chunk)`` down to max_degree, in
     place (cleanup pass); rows past the capacity are skipped."""
@@ -528,12 +533,7 @@ def _enforce_chunk(graph: GraphIndex, provider, start: int, config: GraphConfig,
         config.alphas, algo=config.prune_algo,
     )
     row_ids, row_scores = _pad_rows(p_ids, p_scores, r_cap)
-    k = min(start + chunk, n_cap) - start
-    keep = valid_row[:k]
-    sl = slice(start, start + k)
-    layer.neighbors[sl] = torch.where(keep[:, None], row_ids[:k], layer.neighbors[sl])
-    layer.scores[sl] = torch.where(keep[:, None], row_scores[:k], layer.scores[sl])
-    layer.counts[sl] = torch.where(keep, p_count[:k].to(torch.int32), layer.counts[sl])
+    _write_rows(layer, start, valid_row, row_ids, row_scores, p_count)
     return graph
 
 
@@ -1236,6 +1236,104 @@ class GraphIndexBuilder:
             if s > best_score:
                 best_score, best_id = s, a + i
         return graph._replace(entry_node=torch.tensor(best_id, dtype=torch.int32, device=vectors.device))
+
+
+def _own_base(graph: GraphIndex) -> GraphIndex:
+    """The graph with a copy of its base layer, which the refine and rescore
+    passes then update in place (the caller's graph stays as it was, as the
+    JAX package's functional updates leave it)."""
+    base = graph.base
+    layer = GraphLayer(neighbors=base.neighbors.clone(), scores=base.scores.clone(), counts=base.counts.clone())
+    return graph._replace(layers=(layer,) + graph.layers[1:])
+
+
+def _refine_chunk(graph: GraphIndex, provider, qvecs: torch.Tensor, start: int, config: GraphConfig, chunk: int) -> None:
+    """Re-search the rows ``[start, start + chunk)`` from the entry node, merge
+    the findings with each old row and re-prune it, in place (reference
+    ``GraphIndexBuilder.improveConnections`` inside ``cleanup()``,
+    ``:510-538``: the refineFinalGraph pass)."""
+    layer = graph.base
+    n_cap, r_cap = layer.neighbors.shape
+    dev = layer.neighbors.device
+    rows = start + torch.arange(chunk, dtype=torch.int32, device=dev)
+    safe_rows = torch.clamp(rows, max=n_cap - 1)
+    idx = safe_rows.long()
+    valid_row = (rows < graph.num_nodes) & ~graph.deleted[idx]
+    qstate = provider.prepare(qvecs)
+    entries = torch.where(valid_row, graph.entry_node, -1).to(torch.int32)
+    beam = search_layer(
+        layer.neighbors, provider, qstate, entries,
+        beam_width=config.ef_construction, max_iters=config.max_build_iters,
+    )
+    old_ids = torch.where(torch.arange(r_cap, device=dev)[None, :] < layer.counts[idx][:, None], layer.neighbors[idx], -1)
+    old_scores = torch.where(old_ids >= 0, layer.scores[idx], NEG_INF)
+    cand_ids = torch.cat([beam.ids, old_ids], dim=1)
+    cand_scores = torch.cat([beam.scores, old_scores], dim=1)
+    cand_ids = torch.where(cand_ids == safe_rows[:, None], -1, cand_ids)  # self-edges the search found
+    cand_scores = torch.where(cand_ids >= 0, cand_scores, NEG_INF)
+    cand_scores = tie_break_scores(safe_rows, cand_ids, cand_scores)
+    cand_ids, cand_scores = dedup_sorted_desc(cand_ids, cand_scores)
+    p_ids, p_scores, p_count = robust_prune(
+        cand_ids, cand_scores, _prune_simmat(provider, cand_ids), config.max_degree,
+        config.alphas, algo=config.prune_algo,
+    )
+    row_ids, row_scores = _pad_rows(p_ids, p_scores, r_cap)
+    _write_rows(layer, start, valid_row, row_ids, row_scores, p_count)
+
+
+def _rescore_chunk(graph: GraphIndex, provider, start: int, chunk: int) -> None:
+    """Recompute the edge scores of rows ``[start, start + chunk)`` with
+    ``provider`` and re-sort each row, in place (reference
+    ``GraphIndexBuilder.rescore():391-434``, used after PQ codebook
+    fine-tuning so that edge order matches the new scores)."""
+    layer = graph.base
+    n_cap, r_cap = layer.neighbors.shape
+    dev = layer.neighbors.device
+    rows = start + torch.arange(chunk, dtype=torch.int32, device=dev)
+    safe_rows = torch.clamp(rows, max=n_cap - 1)
+    idx = safe_rows.long()
+    nbrs = layer.neighbors[idx]
+    valid = (torch.arange(r_cap, device=dev)[None, :] < layer.counts[idx][:, None]) & (nbrs >= 0)
+    scores = torch.where(valid, provider.score_nodes(safe_rows, torch.clamp(nbrs, min=0)), NEG_INF)
+    order = torch.argsort(-scores, dim=1, stable=True)
+    ids = torch.gather(torch.where(valid, nbrs, -1), 1, order)
+    _write_rows(layer, start, rows < n_cap, ids, torch.gather(scores, 1, order))
+
+
+def refine_graph(
+    graph: GraphIndex,
+    provider,
+    vectors: torch.Tensor | np.ndarray,
+    config: GraphConfig,
+    chunk: int = 1024,
+) -> GraphIndex:
+    """A full refineFinalGraph pass over the base layer; returns the refined
+    graph (the input graph is not changed).
+
+    ``vectors`` may be a host numpy array or memmap: one chunk of rows is
+    uploaded per step, so the pass runs in bounded device memory.
+    """
+    graph = _own_base(graph)
+    dev = graph.base.neighbors.device
+    n_vec = vectors.shape[0]
+    for start in range(0, graph.capacity, chunk):
+        rows = np.minimum(np.arange(start, start + chunk), n_vec - 1)
+        if isinstance(vectors, np.ndarray):
+            qvecs = torch.as_tensor(np.asarray(vectors[rows]), dtype=torch.float32, device=dev)
+        else:
+            qvecs = vectors[torch.as_tensor(rows, device=vectors.device)].to(device=dev, dtype=torch.float32)
+        _refine_chunk(graph, provider, qvecs, start, config, chunk)
+    return graph
+
+
+def rescore_graph(graph: GraphIndex, provider, chunk: int = 2048) -> GraphIndex:
+    """Recompute every base-layer edge score with ``provider`` (after a PQ
+    refine) and re-sort the rows; returns the rescored graph (the input
+    graph is not changed)."""
+    graph = _own_base(graph)
+    for start in range(0, graph.capacity, chunk):
+        _rescore_chunk(graph, provider, start, chunk)
+    return graph
 
 
 def build_graph(

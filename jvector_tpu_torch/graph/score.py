@@ -92,6 +92,10 @@ class ExactScoreProvider:
         """qstate ``[Q, D]``, ids ``[Q, R]`` (>= 0) -> ``[Q, R]``."""
         return exact_score_rows(qstate, self.vectors[ids.long()], self.sim)
 
+    def score_nodes(self, node_ids: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Node-to-node scores: node_ids ``[B]``, ids ``[B, R]`` -> ``[B, R]``."""
+        return self.score(self.prepare(self.vectors[node_ids.long()]), ids)
+
     def pairwise(self, ids_a: torch.Tensor, ids_b: torch.Tensor) -> torch.Tensor:
         """Batched all-pairs: ids_a ``[B, Ca]``, ids_b ``[B, Cb]`` -> ``[B, Ca, Cb]``."""
         va = self.vectors[ids_a.long()].float()
@@ -223,6 +227,11 @@ class SQ4ScoreProvider:
         k = unpack_nibble_rows(self._code_rows(ids.long())).float()
         return k * self.scale + self.offset
 
+    def score_nodes(self, node_ids: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Node-to-node scores: node_ids ``[B]``, ids ``[B, R]`` -> ``[B, R]``,
+        the decoded nodes taken as queries."""
+        return self.score(self.prepare(self.decode(node_ids)), ids)
+
     def pairwise(self, ids_a: torch.Tensor, ids_b: torch.Tensor) -> torch.Tensor:
         """All-pairs on dequantized vectors (one decode per side)."""
         a = self.decode(ids_a)
@@ -328,11 +337,17 @@ class ADCScoreProvider:
 
     def score_nodes(self, node_ids: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """Code-to-code scores: node_ids ``[B]``, ids ``[B, R]`` -> ``[B, R]``.
-        Subspaces are independent, so the sum of per-subspace centroid
-        measures equals the measure between the decoded vectors."""
-        a = self.decode_centered(node_ids)[:, None, :]
-        b = self.decode_centered(ids)
-        return normalize_score(pairwise_raw(a, b, self.sim)[:, 0, :], self.sim)
+        Each node's decoded vector builds one LUT and K5 scores its row of
+        codes; subspaces are independent, so the sum of per-subspace
+        centroid measures equals the measure between the decoded vectors
+        (the JAX package's decode-and-multiply, to float32 rounding)."""
+        origins = self.decode_centered(node_ids)
+        sim = self.sim
+        if sim == SimilarityFunction.COSINE:
+            n = torch.sqrt(torch.sum(origins * origins, dim=-1, keepdim=True))
+            origins = origins / torch.clamp(n, min=1e-30)
+            sim = SimilarityFunction.DOT_PRODUCT
+        return self._score_codes(build_partial_sums(origins, self.codebooks, sim), self.codes[ids.long()])
 
     def pairwise(self, ids_a: torch.Tensor, ids_b: torch.Tensor) -> torch.Tensor:
         """Batched all-pairs code-to-code ``[B, Ca, Cb]`` (one decode per side)."""

@@ -353,8 +353,9 @@ def _k5_case(seed: int, q: int, c: int, m: int, k: int):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "q, c, m, k",
-    [(4096, 56, 16, 256), (512, 112, 16, 256), (1, 70_000, 16, 256), (13, 19, 5, 32), (3, 40, 64, 256), (2, 9, 32, 16)],
-    ids=["serve", "build", "scan", "unaligned", "m_chunks", "k16"],
+    [(4096, 56, 16, 256), (512, 112, 16, 256), (1, 70_000, 16, 256), (13, 19, 5, 32), (3, 40, 64, 256), (2, 9, 32, 16),
+     (1024, 56, 16, 256)],
+    ids=["serve", "build", "scan", "unaligned", "m_chunks", "k16", "refine_rescore"],
 )
 def test_k5_kernel_matches_twin_on_card(cuda_device, q, c, m, k):
     """Only the order of the float32 sum differs (M = 64 stages the LUT in
@@ -382,6 +383,30 @@ def test_k5_shared_table_and_rejects(cuda_device):
     with pytest.raises(ValueError, match="256"):
         tadc.adc_score_kernel(torch.zeros((5, 16, 512), device=cuda_device), tc)
     assert tadc.adc_score_kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sim", ["euclidean", "cosine"])
+def test_adc_score_nodes_through_k5_on_card(cuda_device, sim):
+    """The rescore's scorer at its shape (a chunk of 1024 rows, 56 neighbors
+    each): ``ADCScoreProvider.score_nodes`` launches K5 (once, and once
+    more for the cosine norm) and agrees with the same call on the CPU,
+    which runs K5's twin."""
+    from jvector_tpu_torch.graph.score import ADCScoreProvider
+
+    rng = np.random.default_rng(5)
+    books, codes = rng.normal(size=(16, 256, 8)).astype(np.float32), rng.integers(0, 256, (4096, 16)).astype(np.uint8)
+    nodes, ids = rng.integers(0, 4096, 1024).astype(np.int32), rng.integers(0, 4096, (1024, 56)).astype(np.int32)
+
+    def run(dev):
+        prov = ADCScoreProvider(codes=_t(codes, dev), codebooks=_t(books, dev), center=None, sim=sim)
+        return prov.score_nodes(_t(nodes, dev), _t(ids, dev))
+
+    before = tadc.adc_score_kernel.launches
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert tadc.adc_score_kernel.launches == before + (2 if sim == "cosine" else 1)
+    torch.testing.assert_close(got.cpu(), run("cpu"), rtol=1e-5, atol=1e-4)
 
 
 def _k6_case(seed: int, q: int, mp: int, c: int):

@@ -8,7 +8,8 @@ regime (the K3 path: both packages' ``_FUSED_BUILD_BUDGET`` set to 0) and in
 the fused regime, and the PQ stream build with codebooks carried over from
 the JAX package, must write files equal array by array.  A port build
 resumed from its checkpoint equals an uninterrupted one, and
-``HostGraphIndex`` serves one file with equal ids in both packages.
+``HostGraphIndex`` serves one file with equal ids in both packages, plain
+and filtered.
 """
 
 import jax.numpy as jnp
@@ -180,7 +181,14 @@ def test_host_graph_search_ids_equal(pipeline, corpus, tmp_path_factory, monkeyp
     np.testing.assert_array_equal(b.expanded_count.numpy(), np.asarray(a.expanded_count))
     single = hg.search(queries, top_k=10, beam_width=32, expand=4, rerank=False)
     assert single.ids.shape == (40, 10) and (single.reranked_count == 0).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hg.search(queries, top_k=10, accept=np.ones(N, bool))
+    # filtered host search (the streamed in-loop path) on the same file
+    mask = np.zeros(N, bool)
+    mask[::7] = True
+    kw = dict(top_k=10, beam_width=32, expand=4, pipeline=pipeline, accept=mask, accept_brute_cutoff=0)
+    fa = jhg.HostGraphIndex.load(path).search(jnp.asarray(queries), **kw)
+    fb = hg.search(queries, **kw)
+    np.testing.assert_array_equal(fb.ids.numpy(), np.asarray(fa.ids))
+    np.testing.assert_array_equal(fb.expanded_count.numpy(), np.asarray(fa.expanded_count))
+    assert mask[fb.ids.numpy()].all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         thg.ShardedHostIndex.load(path)
