@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's paths once on one GPU.
 
-    python3 chip_smoke.py              # mips-96d at 500k, the other paths at 200k
+    python3 chip_smoke.py              # every path at 200k
     python3 chip_smoke.py --n 50000    # a shorter rehearsal: every path at 50k
 
 Phases, each printing one JSON line:
@@ -34,9 +34,9 @@ Phases, each printing one JSON line:
    K7: ``index_put_``, K5: gather + sum, K6: a gather per nibble + sum);
 4. robustness (``bench.py``'s robustness corpora through
    ``jvector_tpu_torch.bench.headline``): **mips-96d at ``--n``** (the main
-   path; 500,000 by default, cut from bench.py's 1M so the script stays
-   within its time with the search-API phase; the kernel checks keep the
-   1M shapes): ``synthetic_dataset(n, dim=96,
+   path; 200,000 by default, cut from bench.py's 1M so the script stays
+   within its time, to 500k with the search-API phase and to 200k with
+   the BASELINE-configs phase; the kernel checks keep the 1M shapes): ``synthetic_dataset(n, dim=96,
    sim="dot_product", n_clusters=max(64, n // 500), seed=4)``,
    ``build_graph(..., "dot_product", GraphConfig(max_degree=32,
    ef_construction=100))``, whose SQ4 build takes the fused loop's
@@ -138,6 +138,46 @@ Phases, each printing one JSON line:
    if the rescore changes a row's id set or leaves it unsorted, or if K5
    did not launch in either).
 
+11. BASELINE configs 3 and 4 (``"phase": "baseline_configs"``), as
+   ``experiments/baseline_configs_demo.py`` defines them, through the
+   port's public API: beams 20/30/40/60/80/120 with recall@10 over 512
+   queries printed at every beam, the first beam reaching 0.95 as the
+   operating beam and its QPS over 8192 queries in 1024-query waves.
+   **Config 3** (deep1M-like: ``synthetic_dataset(n, 96, n_queries=8192,
+   k=10, sim="dot_product", n_clusters=max(64, n // 500), seed=7)``, base
+   and queries L2-normalized, exact dot-product ground truth on the card):
+   ``build_graph(base, "dot_product", GraphConfig(max_degree=32,
+   ef_construction=100))`` (the fused loop's whole-row path, K4a once a
+   wave), then on that graph with exact rerank at ``rerank_k = beam``: (a)
+   anisotropic PQ (m = 24, K = 256, uncentred, T = 0.2) through
+   ``build_fused_codes`` / ``FusedADCScoreProvider`` (K5 every beam step),
+   (b) the same PQ with T = -1, (c) anisotropic SQ4
+   (``encode_anisotropic(threshold=0.2)``) through ``provider_for_graph``
+   beside plain SQ4.  **Config 4** (ada-002-like: the same at d = 1536,
+   ``sim="cosine"``, seed 8, built and served as dot product): the SQ4
+   build, which at MP = 768 takes the packed loop (K1 and K2 once a wave
+   on 43,008-byte fused rows; its middle wave re-applied through their
+   twins, bit-equal or it fails), then a BQ first pass with NVQ rerank and
+   with FP32 rerank.  Both run first at n = 20,000, held at beams 60 and
+   120 within 0.03 of the JAX package for (a), (c) and config 4
+   (``experiments/torch_baseline_configs_cpu.py``), then at
+   ``min(--n, 200,000)`` (config 3 cut from the demo's 1M for the
+   script's time; 200,000 is config 4's own size), where recall@10 at
+   beam 120 must reach 0.90 for (a) and config 4 (a floor for a broken
+   path; ``README.md``'s TPU v5e figures are printed beside, unchecked).
+   Between them, ``jvector_tpu_torch.bench.grid.Grid`` on config 3's 20k
+   corpus (anisotropic PQ construction; search compression PQ, BQ and
+   FUSED_PQ; reranking FP32 and NVQ; topK 10 at overquery 2 and 6) with a
+   compressor cache in a temporary directory, run twice: the second run
+   must train nothing.  One 1024-query wave of serve (a) and of config
+   4's serve is timed with its first pass alone and whole, and profiled
+   whole (``torch.profiler``) for the device-busy share and the kernels
+   with the most device time.  Fails also if K4a's launches over a config-3
+   build, or K1's or K2's over a config-4 build, differ from its waves, if
+   serve (a) launched no K5, or if a result has fewer than 10 ids or
+   non-finite scores.  Phase 3 checks K2 at config 4's table
+   (212,992 x 43,008 bytes) and K5 at config 3's M = 24 as well.
+
 Phases run in this order, phase 10's parts inside phases 5, 6 and 7.  Kernel
 launch counts are read per path: set to 0 just before a path, read just
 after.  Float32 matrix products run in full float32: TF32 is switched
@@ -226,6 +266,39 @@ REFINE_SLACK = 0.01
 # same graph gives the same figures), so the port's drop is held to the
 # reference's plus REFINE_SLACK
 JAX_REFINE_200K = (0.40654296875, 0.40537109375)
+# BASELINE configs 3 and 4 (experiments/baseline_configs_demo.py): its
+# beams, operating rule (the first beam whose recall@10 over 512 queries
+# reaches 0.95, QPS over 8192 queries in 1024-query waves), sizes, a floor
+# for a broken path at 200k, and the JAX package's recall@10 at n = 20,000
+# on the same corpora, quantizers and serves (experiments/torch_baseline_configs_cpu.py)
+BASELINE_BEAMS = (20, 30, 40, 60, 80, 120)
+BASELINE_N = 200_000
+BASELINE_PARITY_N = 20_000
+BASELINE_GT_QUERIES = 512
+BASELINE_WAVE = 1024
+BASELINE_QUERIES = 8192
+BASELINE_FLOOR_200K = 0.90
+BASELINE_PARITY_BEAMS = (60, 120)
+JAX_BASELINE_20K = {
+    "c3_aniso_pq": {20: 0.6994140625, 30: 0.817578125, 40: 0.8826171875, 60: 0.94921875, 80: 0.976171875,
+                    120: 0.9953125},
+    "c3_plain_pq": {20: 0.4986328125, 30: 0.6140625, 40: 0.7, 60: 0.8126953125, 80: 0.8779296875,
+                    120: 0.9564453125},
+    "c3_aniso_sq4": {20: 0.9654296875, 30: 0.9955078125, 40: 0.9994140625, 60: 0.9998046875, 80: 0.9998046875,
+                     120: 1.0},
+    "c3_plain_sq4": {20: 0.784375, 30: 0.8826171875, 40: 0.9275390625, 60: 0.9759765625, 80: 0.989453125,
+                     120: 0.9978515625},
+    "c4_bq_nvq": {20: 0.8005859375, 30: 0.8916015625, 40: 0.9375, 60: 0.973828125, 80: 0.9841796875,
+                  120: 0.987890625},
+    "c4_bq_fp32": {20: 0.801171875, 30: 0.8955078125, 40: 0.943359375, 60: 0.9837890625, 80: 0.9955078125,
+                   120: 0.999609375},
+}
+BASELINE_PARITY_HELD = ("c3_aniso_pq", "c3_aniso_sq4", "c4_bq_nvq")
+# README.md's figures for these configs: the JAX package on a TPU v5e at 1M
+# (config 3) and 200k (config 4); printed beside the port's, never a target
+README_TPU_V5E = {"c3_aniso_sq4": {"beam": 30, "recall": 0.9535, "qps": 34_814},
+                  "c3_aniso_pq": {"beam": 120, "recall": 0.9625, "qps": 2_489},
+                  "c4_bq_nvq": {"beam": 60, "recall": 0.9549, "qps": 23_412}}
 
 
 def emit(obj: dict) -> None:
@@ -386,14 +459,17 @@ def _k1_inputs(rng: np.random.Generator, dev, n_cap: int = 1_048_576):
     return adj, w2t, args
 
 
-def _k2_inputs(rng: np.random.Generator, dev, n_cap: int = 1_048_576):
+def _k2_inputs(rng: np.random.Generator, dev, n_cap: int = 1_048_576, t3: int = 32, mp: int = 64):
     """K2 at the 1M main-path shapes: a [1,048,576, 32, 128] uint8 table
     (4 KB rows, MP = 64), W = 512 wave images (8 of them on enforce rows),
     W*M = 16,384 slot patches sorted by row (runs of several slots per row,
     on every other wave row too) with the builder's drop markers (-1 for an
     enforce row's whole run and for some runs' overflow tails, inside the
-    sequence; 2**30 for the invalid tail) and W enforce images."""
-    w, m, t3, mp = 512, 32, 32, 64
+    sequence; 2**30 for the invalid tail) and W enforce images.  ``t3`` and
+    ``mp`` give other row widths (BASELINE config 4: T = 336, MP = 768, a
+    43,008-byte row of 56 slots, on a 212,992-row table)."""
+    w, m = 512, 32
+    n_slots = t3 * 128 // mp
     big = 2**30
     table = torch.randint(0, 256, (n_cap, t3, 128), dtype=torch.uint8, device=dev)
     w0 = int(rng.integers(0, n_cap // w)) * w
@@ -417,7 +493,7 @@ def _k2_inputs(rng: np.random.Generator, dev, n_cap: int = 1_048_576):
         elif rng.random() < 0.1:
             run[-1] = -1  # a dropped tail patch
         keys += run
-        slots += list(rng.permutation(64)[:k])
+        slots += list(rng.permutation(n_slots)[:k])
     assert len(keys) < p - 400  # every target's run fits, then the invalid tail
     keys = np.array((keys + [big] * p)[:p], np.int32)
     slots = np.array((slots + [0] * p)[:p], np.int32)
@@ -673,6 +749,7 @@ K5_SHAPES = {
     "build_search": (512, 112, 16, 256),
     "build_intra_wave": (512, 512, 16, 256),
     "refine_search_rescore": (1024, 56, 16, 256),
+    "baseline_config3_serve": (1024, 56, 24, 256),  # anisotropic PQ, m = 24 on d = 96, 1024-query waves
     "centroid_scan": (1, 1_000_000, 16, 256),
     "unaligned": (13, 19, 5, 32),
 }
@@ -748,6 +825,35 @@ def _apply_times(call, floor_us) -> dict:
             "host_us": host_us(call), "launch_floor_us": floor_us}
 
 
+def _k2_check(rng: np.random.Generator, dev, floor_us, **shape) -> dict:
+    """K2 against its twin on :func:`_k2_inputs` (``shape``: its table
+    arguments), bit-exact or the script fails; the timing fields of the
+    kernels line."""
+    from jvector_tpu_torch.ops.kernels.scatter_rows import fused_update_inplace, fused_update_ref
+
+    table, args = _k2_inputs(rng, dev, **shape)
+    kt = table.clone()
+    fused_update_inplace(kt, *args)
+    rt = table.clone()
+    fused_update_ref(rt, *args)
+    torch.cuda.synchronize()
+    exact = torch.equal(kt, rt)
+    err = 0 if exact else int((kt.to(torch.int16) - rt.to(torch.int16)).abs().max())
+    changed = int((kt != table).any(dim=(1, 2)).sum())
+    ms = median_ms(lambda: fused_update_inplace(kt, *args))
+    plain_ms = median_ms(lambda: fused_update_ref(rt, *args))
+    times = _apply_times(lambda: fused_update_inplace(kt, *args), floor_us)
+    n_bytes = _k2_bytes(table, args)
+    emit({"phase": "kernel_check", "kernel": "K2 fused_update_inplace", "table": list(table.shape),
+          "bit_exact": exact, "rows_changed": changed, "ms": ms, "plain_ms": plain_ms, **times, "bytes": n_bytes})
+    if not exact or changed == 0:
+        raise SystemExit(f"K2 disagrees with its twin on a {list(table.shape)} table")
+    del table, kt, rt, args
+    torch.cuda.empty_cache()
+    return {"table": shape or {"n_cap": 1_048_576, "t3": 32, "mp": 64}, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None, **times}
+
+
 def phase_kernel_check() -> list[dict]:
     from jvector_tpu_torch.ops.kernels.packed_adj import (
         packed_adj_only_update_inplace,
@@ -755,7 +861,6 @@ def phase_kernel_check() -> list[dict]:
         packed_adj_update_inplace,
         packed_adj_update_ref,
     )
-    from jvector_tpu_torch.ops.kernels.scatter_rows import fused_update_inplace, fused_update_ref
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1234)
@@ -813,30 +918,14 @@ def phase_kernel_check() -> list[dict]:
                 "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None, **times})
     del adj, ka, ra, args
 
-    table, args = _k2_inputs(rng, dev)
-    kt = table.clone()
-    fused_update_inplace(kt, *args)
-    rt = table.clone()
-    fused_update_ref(rt, *args)
-    torch.cuda.synchronize()
-    exact = torch.equal(kt, rt)
-    err = 0 if exact else int((kt.to(torch.int16) - rt.to(torch.int16)).abs().max())
-    changed = int((kt != table).any(dim=(1, 2)).sum())
-    ms = median_ms(lambda: fused_update_inplace(kt, *args))
-    plain_ms = median_ms(lambda: fused_update_ref(rt, *args))
-    times = _apply_times(lambda: fused_update_inplace(kt, *args), floor_us)
-    n_bytes = _k2_bytes(table, args)
-    emit({"phase": "kernel_check", "kernel": "K2 fused_update_inplace", "bit_exact": exact,
-          "rows_changed": changed, "ms": ms, "plain_ms": plain_ms, **times, "bytes": n_bytes})
-    if not exact or changed == 0:
-        raise SystemExit("K2 disagrees with its twin")
+    k2 = _k2_check(rng, dev, floor_us)
+    # BASELINE config 4's table: 212,992 rows of 43,008 bytes (MP = 768)
+    k2_wide = _k2_check(rng, dev, floor_us, n_cap=212_992, t3=336, mp=768)
     out.append({"name": "fused_update_inplace", "route": "cuda",
                 "source": "jvector_tpu_torch/csrc/fused_update.cu",
                 "replaces": "jvector_tpu/ops/pallas/scatter_rows.py:426",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": None, **times})
-    del table, kt, rt, args
-    torch.cuda.empty_cache()
+                "max_abs_err": max(k2["max_abs_err"], k2_wide["max_abs_err"]),
+                **{k: v for k, v in k2.items() if k != "max_abs_err"}, "baseline_config4_row": k2_wide})
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     rows = {name: _k5_check(gen, *shape, timed=name != "unaligned")
@@ -851,7 +940,9 @@ def phase_kernel_check() -> list[dict]:
                 "replaces": "jvector_tpu/ops/pallas/adc_kernel.py:63",
                 "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
                 "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
-                "bound_by": "bytes", "library_ms": serve["library_ms"]})
+                "bound_by": "bytes", "library_ms": serve["library_ms"],
+                "baseline_config3_serve": {k: rows["baseline_config3_serve"][k]
+                                           for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}})
 
     rows = {name: _k6_check(gen, *shape, timed=name != "unaligned") for name, shape in K6_SHAPES.items()}
     emit({"phase": "kernel_check", "kernel": "K6 adc16_score_kernel", "shapes": rows})
@@ -1814,9 +1905,294 @@ def phase_ltm_path(n: int, dev: torch.device) -> dict:
     return result
 
 
+def _baseline_corpus(n: int, dim: int, sim: str, seed: int, dev: torch.device, gt_queries: int):
+    """``experiments/baseline_configs_demo.py``'s corpus: base and queries
+    L2-normalized again, the exact dot-product top-10 of the first
+    ``gt_queries`` queries on the card.  Returns numpy base and queries and
+    the ground truth."""
+    from jvector_tpu_torch.util.datasets import synthetic_dataset
+
+    ds = synthetic_dataset(n=n, dim=dim, n_queries=BASELINE_QUERIES, k=TOP_K, sim=sim,
+                           n_clusters=max(64, n // 500), seed=seed, device=dev)
+    base, queries = ds.base, ds.queries
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    q = torch.as_tensor(queries[:gt_queries], device=dev)
+    gt = torch.topk(q @ torch.as_tensor(base, device=dev).T, TOP_K, dim=1).indices.to(torch.int32).cpu().numpy()
+    return base, queries, gt
+
+
+def _operating(run, queries: torch.Tensor, gt: np.ndarray, what: str, beams=BASELINE_BEAMS) -> dict:
+    """The demo's operating rule: recall@10 over the first 512 queries at
+    every beam (printed, though the rule stops at the first beam reaching
+    0.95), that beam (the last when none does), and its QPS over 8192
+    queries in 1024-query waves.  Counts launches from 0."""
+    from jvector_tpu_torch.util.datasets import recall_at_k
+
+    reset_counts()
+    recalls, chosen = {}, None
+    for b in beams:
+        ids = _check_result(run(queries[:BASELINE_GT_QUERIES], b), BASELINE_GT_QUERIES, f"{what} at beam {b}")
+        recalls[b] = recall_at_k(ids, gt, TOP_K)
+        if chosen is None and recalls[b] >= RECALL_FLOOR:
+            chosen = b
+    beam = chosen or beams[-1]
+    run(queries[:BASELINE_WAVE], beam).ids.cpu()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i in range(0, BASELINE_QUERIES, BASELINE_WAVE):
+        run(queries[i : i + BASELINE_WAVE], beam)
+    torch.cuda.synchronize()
+    return {"recall": {str(b): r for b, r in recalls.items()}, "operating_beam": beam,
+            "reaches_0.95": chosen is not None, "qps": BASELINE_QUERIES / (time.time() - t0),
+            "launches": read_counts()}
+
+
+def _serve_split(first_only, full, queries: torch.Tensor) -> dict:
+    """Where one 1024-query wave's time goes: the wall seconds of the first
+    pass alone and of the whole two-pass search (host clock, device
+    synced, after a warm-up), and for the whole search its device-busy
+    seconds and share and the kernels with the most device time
+    (``torch.profiler``, CUDA activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q = queries[:BASELINE_WAVE]
+    split = {}
+    for name, fn in (("first_pass_only", first_only), ("with_rerank", full)):
+        fn(q).ids.cpu()
+        split[f"{name}_wall_s"] = _timed(lambda f=fn: f(q))[1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed(lambda: full(q))
+    ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in ka)
+    top = sorted(ka, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    split.update(profiled_wall_s=wall, device_busy_s=dev_us / 1e6, busy_share=dev_us / 1e6 / wall,
+                 top_device_ms=[(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in top])
+    return split
+
+
+def _baseline_config3(n: int, dev: torch.device, keep_corpus: bool = False) -> dict:
+    """BASELINE config 3 (deep1M-like, 96-d, dot product) at ``n``: the SQ4
+    build (the fused loop's whole-row path, K4a once a wave), then on that
+    graph (a) anisotropic PQ (m = 24, K = 256, uncentred, T = 0.2) through
+    fused ADC (K5), (b) the same PQ with T = -1, (c) anisotropic SQ4 through
+    ``provider_for_graph`` beside plain SQ4, each with exact rerank at
+    ``rerank_k = beam``."""
+    from jvector_tpu_torch.graph import FusedADCScoreProvider, GraphConfig, build_fused_codes, build_graph, search
+    from jvector_tpu_torch.graph.builder import _shuffled_wave_starts
+    from jvector_tpu_torch.quantization import ProductQuantization, ScalarQuantization4
+
+    base_np, queries_np, gt = _baseline_corpus(n, 96, "dot_product", 7, dev, BASELINE_GT_QUERIES)
+    base = torch.as_tensor(base_np, device=dev)
+    queries = torch.as_tensor(queries_np, device=dev)
+    cfg = GraphConfig(max_degree=32, ef_construction=100)
+    n_waves = len(_shuffled_wave_starts(n, cfg.wave_size))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (graph, exact), build_s = _timed(lambda: build_graph(base, "dot_product", cfg))
+    line = {"phase": "baseline_configs", "config": 3, "n": n, "dim": 96, "n_waves": n_waves, "build_seconds": build_s,
+            "build_launches": read_counts(), "average_degree": graph.average_degree(),
+            "build_peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30, "serves": {}}
+
+    def pad(codes):
+        return torch.nn.functional.pad(codes, (0, 0, 0, graph.capacity - n))
+
+    for name, thr in (("c3_aniso_pq", 0.2), ("c3_plain_pq", -1.0)):
+        pq, train_s = _timed(lambda t=thr: ProductQuantization.compute(base, m=24, clusters=256,
+                                                                       globally_center=False, anisotropic_threshold=t))
+        codes, encode_s = _timed(lambda q=pq: pad(q.encode(base)))
+        fused, fused_s = _timed(lambda c=codes: build_fused_codes(graph.base.neighbors, c))
+        prov = FusedADCScoreProvider(codes=codes, fused_codes=fused, codebooks=pq.codebooks, center=pq.center,
+                                     sim=exact.sim)
+        serve = _operating(lambda q, b, p=prov: search(graph, p, q, top_k=TOP_K, beam_width=b, rerank_k=b,
+                                                          reranker=exact), queries, gt, name)
+        line["serves"][name] = {**serve, "train_seconds": train_s, "encode_seconds": encode_s,
+                                "fused_table_seconds": fused_s, "compressed_size": pq.compressed_size}
+        if name == "c3_aniso_pq":
+            b = serve["operating_beam"]
+            line["serves"][name]["split"] = _serve_split(
+                lambda q, p=prov: search(graph, p, q, top_k=TOP_K, beam_width=b),
+                lambda q, p=prov: search(graph, p, q, top_k=TOP_K, beam_width=b, rerank_k=b, reranker=exact),
+                queries)
+        del pq, codes, fused, prov
+    sq = ScalarQuantization4.compute(base)
+    for name, encode in (("c3_aniso_sq4", lambda: sq.encode_anisotropic(base, threshold=0.2)),
+                         ("c3_plain_sq4", lambda: sq.encode(base))):
+        codes, encode_s = _timed(lambda e=encode: pad(e()))
+        prov, table_s = _timed(lambda c=codes: sq.provider_for_graph(c, graph.base.neighbors, "dot_product"))
+        serve = _operating(lambda q, b, p=prov: search(graph, p, q, top_k=TOP_K, beam_width=b, rerank_k=b,
+                                                          reranker=exact), queries, gt, name)
+        line["serves"][name] = {**serve, "encode_seconds": encode_s, "fused_table_seconds": table_s,
+                                "compressed_size": sq.compressed_size}
+        del codes, prov
+    del graph, exact, base, queries
+    torch.cuda.empty_cache()
+    if keep_corpus:
+        line["corpus"] = (base_np, queries_np)
+    return line
+
+
+def _baseline_config4(n: int, dev: torch.device) -> dict:
+    """BASELINE config 4 (ada-002-like, 1536-d, cosine data built and served
+    as dot product) at ``n``: the SQ4 build, which at MP = 768 takes the
+    packed loop (K1 and K2 once a wave, on 43,008-byte fused rows; its
+    middle wave re-applied through their twins), then a BQ first pass with
+    NVQ rerank at ``rerank_k = beam``, and an FP32 rerank at the chosen
+    beam for what NVQ costs."""
+    from jvector_tpu_torch.graph import GraphConfig, build_graph, search
+    from jvector_tpu_torch.graph.builder import _shuffled_wave_starts
+    from jvector_tpu_torch.quantization import BinaryQuantization, NVQuantization
+
+    base_np, queries_np, gt = _baseline_corpus(n, 1536, "cosine", 8, dev, BASELINE_GT_QUERIES)
+    base = torch.as_tensor(base_np, device=dev)
+    queries = torch.as_tensor(queries_np, device=dev)
+    del base_np, queries_np
+    cfg = GraphConfig(max_degree=32, ef_construction=100)
+    n_waves = len(_shuffled_wave_starts(n, cfg.wave_size))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with _real_wave_check(n_waves // 2) as real_wave:
+        (graph, exact), build_s = _timed(lambda: build_graph(base, "dot_product", cfg))
+    line = {"phase": "baseline_configs", "config": 4, "n": n, "dim": 1536, "n_waves": n_waves,
+            "build_seconds": build_s, "build_launches": read_counts(), "real_wave_check": real_wave,
+            "average_degree": graph.average_degree(),
+            "build_peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
+    bq, bq_s = _timed(lambda: BinaryQuantization.compute(base))
+    codes, bq_encode_s = _timed(lambda: bq.encode(base))
+    nvq, nvq_s = _timed(lambda: NVQuantization.compute(base))
+    vecs, nvq_encode_s = _timed(lambda: nvq.encode(base))
+    first, rerank = bq.provider(codes), vecs.provider("dot_product")
+    serve = _operating(lambda q, b: search(graph, first, q, top_k=TOP_K, beam_width=b, rerank_k=b, reranker=rerank),
+                       queries, gt, "c4_bq_nvq")
+    fp32 = _operating(lambda q, b: search(graph, first, q, top_k=TOP_K, beam_width=b, rerank_k=b, reranker=exact),
+                      queries, gt, "c4_bq_fp32")
+    b = serve["operating_beam"]
+    serve["split"] = _serve_split(
+        lambda q: search(graph, first, q, top_k=TOP_K, beam_width=b),
+        lambda q: search(graph, first, q, top_k=TOP_K, beam_width=b, rerank_k=b, reranker=rerank), queries)
+    line["serves"] = {
+        "c4_bq_nvq": {**serve, "bq_compute_seconds": bq_s, "bq_encode_seconds": bq_encode_s,
+                      "nvq_compute_seconds": nvq_s, "nvq_encode_seconds": nvq_encode_s,
+                      "bq_compressed_size": bq.compressed_size, "nvq_compressed_size": vecs.compressed_size},
+        "c4_bq_fp32": fp32,
+    }
+    del graph, exact, base, queries, codes, vecs, first, rerank
+    torch.cuda.empty_cache()
+    return line
+
+
+def _baseline_grid(base: np.ndarray, queries: np.ndarray, dev: torch.device) -> dict:
+    """``jvector_tpu_torch.bench.grid.Grid`` on config 3's 20k corpus (1024
+    queries, one wave a row): anisotropic PQ construction (mFactor 4, K =
+    256, uncentred, T = 0.2), search compression PQ (the same entry), BQ
+    and FUSED_PQ, reranking FP32 and NVQ, topK 10 at overquery 2 and 6,
+    with a compressor cache in a temporary directory; then the same grid
+    run again, which must load every compressor and train none."""
+    import tempfile
+
+    from jvector_tpu_torch.bench.grid import Grid, GridConfig
+    from jvector_tpu_torch.ops.similarity import SimilarityFunction
+    from jvector_tpu_torch.util.datasets import DataSet
+
+    q = queries[:BASELINE_WAVE]
+    gt = torch.topk(torch.as_tensor(q, device=dev) @ torch.as_tensor(base, device=dev).T, TOP_K,
+                    dim=1).indices.to(torch.int32).cpu().numpy()
+    ds = DataSet(name=f"deep1M-like-{base.shape[0]}", similarity=SimilarityFunction.DOT_PRODUCT, base=base,
+                 queries=q, ground_truth=gt)
+    pq = {"type": "PQ", "mFactor": 4, "k": 256, "centerData": False, "anisotropicThreshold": 0.2}
+    cfg = GridConfig(compression=[pq], search_compression=[pq, {"type": "BQ"}, {"type": "FUSED_PQ", "mFactor": 4,
+                                                                                "k": 256}],
+                     reranking=["FP32", "NVQ"], top_k_overquery={10: [2.0, 6.0]}, wave_size=BASELINE_WAVE)
+    line = {"phase": "baseline_grid", "n": base.shape[0], "queries": BASELINE_WAVE, "runs": []}
+    with tempfile.TemporaryDirectory(prefix="jvtpu-grid-") as cache:
+        grid = Grid(ds, cfg, compressor_cache_dir=cache, device=dev)
+        trained = []
+        cached = grid._trained
+        grid._trained = lambda kind, params, train: cached(kind, params, lambda: (trained.append(kind), train())[1])
+        for _ in range(2):
+            before = len(trained)
+            reset_counts()
+            rows, secs = _timed(lambda: grid.run(verbose=False))
+            line["runs"].append({
+                "seconds": secs, "trained": trained[before:], "launches": read_counts(),
+                "rows": [{k: r[k] for k in ("buildCompression", "compression", "reranking", "topK", "overquery",
+                                            "recall", "qps_avg", "index_build_time_s", "quant_time_s")}
+                         for r in rows[-12:]]})
+        line["cache_files"] = len(os.listdir(cache))
+    line["row_keys"] = sorted(rows[-1])
+    return line
+
+
+def phase_baseline_configs(n: int, dev: torch.device) -> dict:
+    """BASELINE configs 3 and 4 (see the module docstring): the 20k parity
+    cells and the grid first, then both configs at ``min(n, 200,000)``."""
+    fails = []
+
+    def check_builds(line: dict) -> None:
+        b, waves = line["build_launches"], line["n_waves"]
+        if line["config"] == 3 and b["scatter_rows3_inplace"] != waves:
+            fails.append(f"config 3 at {line['n']}: K4a launched {b['scatter_rows3_inplace']} times over {waves} waves")
+        if line["config"] == 4:
+            for name in ("packed_adj_update_inplace", "fused_update_inplace"):
+                if b[name] != waves:
+                    fails.append(f"config 4 at {line['n']}: {name} launched {b[name]} times over {waves} waves")
+            rw = line["real_wave_check"]
+            if not (rw.get("k1_bit_exact") and rw.get("k2_bit_exact")):
+                fails.append(f"config 4: K1 or K2 disagrees with its twin on a real wave: {rw}")
+        if line["config"] == 3 and line["serves"]["c3_aniso_pq"]["launches"]["adc_score_kernel"] == 0:
+            fails.append(f"config 3 at {line['n']}: serve (a) launched no K5")
+
+    t0 = time.time()
+    lines = {}
+    c3 = _baseline_config3(BASELINE_PARITY_N, dev, keep_corpus=True)
+    c4 = _baseline_config4(BASELINE_PARITY_N, dev)
+    parity = {}
+    for line in (c3, c4):
+        check_builds(line)
+        for name, serve in line["serves"].items():
+            ref = JAX_BASELINE_20K[name]
+            parity[name] = {"port": serve["recall"], "jax": {str(b): r for b, r in ref.items()},
+                            "port_minus_jax": {str(b): serve["recall"][str(b)] - r for b, r in ref.items()}}
+            if name in BASELINE_PARITY_HELD:
+                off = {b: parity[name]["port_minus_jax"][str(b)] for b in BASELINE_PARITY_BEAMS}
+                if any(abs(d) > PARITY_SLACK for d in off.values()):
+                    fails.append(f"20k {name} recall is off the JAX figures by more than {PARITY_SLACK}: {off}")
+    base20, queries20 = c3.pop("corpus")
+    for line in (c3, c4):
+        emit(line)
+    emit({"phase": "baseline_parity", "n": BASELINE_PARITY_N, "held": list(BASELINE_PARITY_HELD),
+          "beams": list(BASELINE_PARITY_BEAMS), "slack": PARITY_SLACK, "serves": parity})
+    grid = _baseline_grid(base20, queries20, dev)
+    del base20, queries20
+    emit(grid)
+    if grid["runs"][1]["trained"]:
+        fails.append(f"the grid's second run trained {grid['runs'][1]['trained']}")
+    if len(grid["runs"][0]["trained"]) != 4:
+        fails.append(f"the grid's first run trained {grid['runs'][0]['trained']}, not PQ, BQ, PQ and NVQ once each")
+    lines["parity_20k"] = {"config3": c3, "config4": c4, "parity": parity}
+    lines["grid"] = grid
+
+    big = min(n, BASELINE_N)
+    for config in (_baseline_config3, _baseline_config4):
+        line = config(big, dev)
+        check_builds(line)
+        line["readme_tpu_v5e"] = {k: v for k, v in README_TPU_V5E.items() if k in line["serves"]}
+        emit(line)
+        lines[f"config{line['config']}"] = line
+        held = "c3_aniso_pq" if line["config"] == 3 else "c4_bq_nvq"
+        r120 = line["serves"][held]["recall"]["120"]
+        if big == BASELINE_N and r120 < BASELINE_FLOOR_200K:
+            fails.append(f"{held} at {big}: recall@10 at beam 120 is {r120} < {BASELINE_FLOOR_200K}")
+    lines["seconds"] = time.time() - t0
+    emit({"phase": "baseline_configs_done", "seconds": lines["seconds"], "fails": fails})
+    if fails:
+        raise SystemExit(f"baseline configs: {fails}")
+    return lines
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--n", type=int, default=500_000,
+    p.add_argument("--n", type=int, default=200_000,
                    help="corpus size of the mips-96d path; the other paths run at min(n, 200,000)")
     args = p.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1843,13 +2219,21 @@ def main() -> None:
         raise SystemExit(f"recall@10 at beam 100 is {big['recall']['100']} < {SANITY_FLOOR_200K}")
     lut16_20k = phase_lut16_parity(dev)
     micro = phase_micro(dev)
+    base_cfg = phase_baseline_configs(args.n, dev)
 
-    main_path = {"packed_adj_update_inplace": ("sq4_path",), "fused_update_inplace": ("sq4_path",),
+    main_path = {"packed_adj_update_inplace": ("sq4_path", "baseline_c4_build"),
+                 "fused_update_inplace": ("sq4_path", "baseline_c4_build"),
                  "packed_adj_only_update_inplace": ("ltm_build",),
-                 "scatter_rows3_inplace": ("mips_96d_build",), "scatter_rows_inplace": (), "scatter_slots_inplace": (),
+                 "scatter_rows3_inplace": ("mips_96d_build", "baseline_c3_build"), "scatter_rows_inplace": (),
+                 "scatter_slots_inplace": (),
                  "adc_score_kernel": ("default_config_build", "default_config_serve", "default_config_refine",
-                                      "default_config_rescore"),
+                                      "default_config_rescore", "baseline_c3_serve_a", "baseline_c3_serve_b"),
                  "adc16_score_kernel": ("lut16_serve", "micro")}
+    c3, c4 = base_cfg["config3"], base_cfg["config4"]
+    c3_20k, c4_20k = base_cfg["parity_20k"]["config3"], base_cfg["parity_20k"]["config4"]
+
+    def serves(line: dict, *names: str) -> dict:
+        return {k: sum(line["serves"][s]["launches"][k] for s in names) for k in line["build_launches"]}
     mips, adv = robust["mips_96d"]["launches"], robust["clustered_adversarial"]["launches"]
     api = sq4["search_api"]
     for k in kernels:
@@ -1868,7 +2252,17 @@ def main() -> None:
                    "default_config_rescore": big["refine"]["launches"]["rescore"][name],
                    "search_api_filtered": sum(r["launches"][name] for r in api["filtered"].values()),
                    "search_api_multi_index_build": api["multi_index"]["build_launches"][name],
-                   "search_api_host": ltm["search_api"]["launches"][name]}
+                   "search_api_host": ltm["search_api"]["launches"][name],
+                   "baseline_c3_build": c3["build_launches"][name],
+                   "baseline_c3_serve_a": serves(c3, "c3_aniso_pq")[name],
+                   "baseline_c3_serve_b": serves(c3, "c3_plain_pq")[name],
+                   "baseline_c3_serve_c": serves(c3, "c3_aniso_sq4", "c3_plain_sq4")[name],
+                   "baseline_c4_build": c4["build_launches"][name],
+                   "baseline_c4_serve": serves(c4, "c4_bq_nvq", "c4_bq_fp32")[name],
+                   "baseline_parity_20k": (c3_20k["build_launches"][name] + c4_20k["build_launches"][name]
+                                           + serves(c3_20k, *c3_20k["serves"])[name]
+                                           + serves(c4_20k, *c4_20k["serves"])[name]),
+                   "baseline_grid": sum(r["launches"][name] for r in base_cfg["grid"]["runs"])}
         k["launches"] = sum(by_path[path] for path in main_path[name])
         k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,20 +4,24 @@ The same layout and public names as the JAX package, for the slices ported
 so far: the SQ4 graph builds (packed and fused wave loops), the PQ-scored
 build, the HNSW hierarchy, two-pass search with an SQ4 or PQ-ADC first
 pass and an exact rerank, the index container, the larger-than-memory
-stream build and bounded-memory host serving.  The
+stream build and bounded-memory host serving, the other quantizers
+(anisotropic PQ and SQ4, BQ, NVQ, compressor files) and the grid runner.
+The
 port imports ``torch`` and never ``jax``; the JAX package stays the
 reference that the port's tests hold it against.
 
 - ``ops``           — similarity measures; ``ops/kernels`` holds the Python
   wrappers of the hand-written CUDA kernels (sources in ``csrc/``) with
   their plain PyTorch twins
-- ``quantization``  — SQ4 (4-bit scalar quantization), PQ (k-means codebooks)
+- ``quantization``  — SQ4 (4-bit scalar quantization), PQ (k-means
+  codebooks, plain and anisotropic), BQ, NVQ, compressor files
 - ``graph``         — graph data model, score providers, robust prune,
   query-wave beam search, wave builders, hierarchy
 - ``disk``          — the index container (shared with the JAX package), the
   larger-than-memory stream build, host-tier rerank and host serving
 - ``util``          — synthetic corpora, exact ground truth, recall, host IO
 - ``convert``       — the JAX package's state (as numpy) -> the port's
+- ``bench``         — the bench script, micro-benchmarks and the grid runner
 """
 
 from jvector_tpu_torch.disk import (
@@ -35,7 +39,12 @@ from jvector_tpu_torch.graph import (
     search,
 )
 from jvector_tpu_torch.ops.similarity import SimilarityFunction
-from jvector_tpu_torch.quantization import ProductQuantization, ScalarQuantization4
+from jvector_tpu_torch.quantization import (
+    BinaryQuantization,
+    NVQuantization,
+    ProductQuantization,
+    ScalarQuantization4,
+)
 
 __all__ = [
     "SimilarityFunction",
@@ -46,6 +55,8 @@ __all__ = [
     "search",
     "ScalarQuantization4",
     "ProductQuantization",
+    "BinaryQuantization",
+    "NVQuantization",
     "build_on_disk_ltm",
     "HostGraphIndex",
     "HostVectorStore",

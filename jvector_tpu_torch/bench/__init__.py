@@ -8,5 +8,10 @@
   row per hot primitive (exact block scoring, PQ train/encode, the K5 and
   K6 ADC kernels, SQ4 encode, the build, fused edge scoring, a search
   wave).  ``python -m jvector_tpu_torch.bench.micro``.
+- ``grid`` — the counterpart of ``jvector_tpu/bench/grid.py``: the YAML
+  grid (``GridConfig``, ``Grid``, ``run_yaml``) over construction and
+  search compression (PQ, BQ, SQ4, FUSED_PQ), reranking (FP32, NVQ) and
+  topK x overquery, with the trained-compressor cache.
+- ``metrics`` — recall@k, MAP and latency statistics (numpy).
 - ``diagnostics`` — ``run_metadata``, the provenance every row carries.
 """

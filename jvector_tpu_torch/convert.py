@@ -16,6 +16,8 @@ import torch
 from jvector_tpu_torch.graph.index import GraphIndex, GraphLayer
 from jvector_tpu_torch.graph.score import LUT16ScoreProvider
 from jvector_tpu_torch.ops.similarity import SimilarityFunction
+from jvector_tpu_torch.quantization.bq import BinaryQuantization
+from jvector_tpu_torch.quantization.nvq import NVQuantization, NVQVectors
 from jvector_tpu_torch.quantization.pq import ProductQuantization
 from jvector_tpu_torch.quantization.sq import ScalarQuantization4
 from jvector_tpu_torch.util.device import resolve_device
@@ -74,13 +76,53 @@ def pq_from_numpy(
     center: np.ndarray | None,  # float32 [M*S] or None
     original_dim: int,
     device: torch.device | str = "cuda",
+    anisotropic_threshold: float = -1.0,
 ) -> ProductQuantization:
-    """A trained PQ quantizer from its codebooks and centering vector."""
+    """A trained PQ quantizer from its codebooks and centering vector (and
+    its anisotropic threshold, which selects the anisotropic encode)."""
     device = resolve_device(device)
     return ProductQuantization(
         codebooks=torch.as_tensor(np.array(codebooks, np.float32), device=device),
         center=None if center is None else torch.as_tensor(np.array(center, np.float32), device=device),
         original_dim=int(original_dim),
+        anisotropic_threshold=float(anisotropic_threshold),
+    )
+
+
+def bq_from_numpy(center: np.ndarray, original_dim: int, device: torch.device | str = "cuda") -> BinaryQuantization:
+    """A BQ quantizer from its centroid ([D] float32)."""
+    return BinaryQuantization(
+        center=torch.as_tensor(np.array(center, np.float32), device=resolve_device(device)),
+        original_dim=int(original_dim),
+    )
+
+
+def bq_codes_from_numpy(codes: np.ndarray, device: torch.device | str = "cuda") -> torch.Tensor:
+    """The JAX package's packed BQ codes (``uint32 [N, W]``) as the port's
+    int32 words, bit for bit."""
+    return torch.as_tensor(np.array(codes, np.uint32).view(np.int32), device=resolve_device(device))
+
+
+def nvq_from_numpy(
+    mean: np.ndarray, original_dim: int, num_subvectors: int = 2, bits: int = 8, device: torch.device | str = "cuda"
+) -> NVQuantization:
+    """An NVQ quantizer from its global mean ([D] float32)."""
+    return NVQuantization(
+        mean=torch.as_tensor(np.array(mean, np.float32), device=resolve_device(device)),
+        original_dim=int(original_dim),
+        num_subvectors=int(num_subvectors),
+        bits=int(bits),
+    )
+
+
+def nvq_vectors_from_numpy(codes: np.ndarray, params: np.ndarray, nvq: NVQuantization) -> NVQVectors:
+    """NVQ-encoded vectors (codes ``uint8 [N, V, S]``, params float32
+    ``[N, V, 4]``) on the device of ``nvq``."""
+    dev = nvq.mean.device
+    return NVQVectors(
+        codes=torch.as_tensor(np.array(codes, np.uint8), device=dev),
+        params=torch.as_tensor(np.array(params, np.float32), device=dev),
+        nvq=nvq,
     )
 
 

@@ -1,5 +1,5 @@
 """Graph core: graph data model, score providers (exact, SQ4, PQ-ADC,
-LUT16), robust prune, query-wave beam search (filtered, threshold and
+LUT16, BQ), robust prune, query-wave beam search (filtered, threshold and
 resumable), the wave builders and the hierarchy (PyTorch counterpart of
 ``jvector_tpu.graph``).  ``builder.refine_graph``, ``builder.rescore_graph``
 and ``multi.multi_search`` are imported from their modules, as in the JAX
@@ -9,6 +9,7 @@ from jvector_tpu_torch.graph.builder import GraphIndexBuilder, build_graph
 from jvector_tpu_torch.graph.index import GraphConfig, GraphIndex
 from jvector_tpu_torch.graph.score import (
     ADCScoreProvider,
+    BQScoreProvider,
     ExactScoreProvider,
     FusedADCScoreProvider,
     LUT16ScoreProvider,
@@ -25,6 +26,7 @@ __all__ = [
     "ExactScoreProvider",
     "SQ4ScoreProvider",
     "ADCScoreProvider",
+    "BQScoreProvider",
     "FusedADCScoreProvider",
     "LUT16ScoreProvider",
     "build_fused_codes",

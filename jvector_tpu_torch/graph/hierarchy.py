@@ -31,6 +31,10 @@ class LevelProvider:
     inner: object
     node_ids: torch.Tensor  # [n_l] slot -> base ordinal
 
+    @property
+    def exact(self) -> bool:
+        return self.inner.exact
+
     def prepare(self, queries):
         return self.inner.prepare(queries)
 

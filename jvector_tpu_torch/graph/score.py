@@ -1,5 +1,7 @@
 """Score providers (counterpart of ``jvector_tpu/graph/score.py``: the
-exact, SQ4, PQ-ADC, fused PQ-ADC and LUT16 (4-bit PQ) providers).
+exact, SQ4, PQ-ADC, fused PQ-ADC, LUT16 (4-bit PQ) and BQ providers; the
+NVQ reranker is ``quantization.nvq.NVQScoreProvider``, as in the JAX
+package).
 
 A provider has ``prepare(queries)`` -> per-wave query state and
 ``score(qstate, ids [Q, C])`` -> ``[Q, C]`` scores (higher = closer); the
@@ -19,6 +21,7 @@ import torch
 from jvector_tpu_torch.ops.adc import build_partial_sums, partial_squared_magnitudes
 from jvector_tpu_torch.ops.adc16 import lut_pairs, unpack_nibbles
 from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel
+from jvector_tpu_torch.ops.hamming import bits_similarity, pack_bits
 from jvector_tpu_torch.ops.kernels.adc16 import adc16_score_kernel
 from jvector_tpu_torch.ops.similarity import SimilarityFunction, normalize_score, pairwise_raw
 from jvector_tpu_torch.quantization.sq import group_dims, unpack_nibble_rows, unpack_nibble_rows_grouped
@@ -81,6 +84,10 @@ class ExactScoreProvider:
     vectors: torch.Tensor  # [N, D] float32 (bfloat16 storage is promoted)
     sim: SimilarityFunction = SimilarityFunction.EUCLIDEAN
 
+    @property
+    def exact(self) -> bool:
+        return True
+
     def prepare(self, queries: torch.Tensor) -> torch.Tensor:
         queries = queries.float()
         if self.sim == SimilarityFunction.COSINE:
@@ -134,6 +141,10 @@ class SQ4ScoreProvider:
     offset: torch.Tensor  # [D_pad] float32
     codes_aug: torch.Tensor | None = None
     sim: SimilarityFunction = SimilarityFunction.EUCLIDEAN
+
+    @property
+    def exact(self) -> bool:
+        return False
 
     @property
     def supports_fused(self) -> bool:
@@ -299,6 +310,10 @@ class ADCScoreProvider:
     sim: SimilarityFunction = SimilarityFunction.EUCLIDEAN
 
     @property
+    def exact(self) -> bool:
+        return False
+
+    @property
     def padded_dim(self) -> int:
         m, _, s = self.codebooks.shape
         return m * s
@@ -368,6 +383,10 @@ class FusedADCScoreProvider:
     codebooks: torch.Tensor  # [M, K, S]
     center: torch.Tensor | None
     sim: SimilarityFunction = SimilarityFunction.EUCLIDEAN
+
+    @property
+    def exact(self) -> bool:
+        return False
 
     @property
     def supports_fused(self) -> bool:
@@ -515,3 +534,39 @@ def build_fused_codes_lut16(neighbors: torch.Tensor, codes_packed: torch.Tensor,
         gathered = codes_packed[torch.clamp(blk, min=0).long()].transpose(1, 2)  # [B, MP, R]
         out[start : start + blk.shape[0]] = torch.where((blk >= 0)[:, None, :], gathered, 0)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BQScoreProvider:
+    """Binary-quantized scoring: the query packed once, XOR + popcount per
+    candidate (reference ``BQVectors.java:116-118``: ``1 - hamming/d``, and
+    ``BuildScoreProvider.bqBuildScoreProvider``)."""
+
+    codes: torch.Tensor  # [N, W] int32 words (the JAX package's uint32, bit for bit)
+    center: torch.Tensor | None = None  # [D] centroid subtracted before the sign test
+    dim: int = 0  # the true dimension; 0 -> W * 32
+
+    @property
+    def exact(self) -> bool:
+        return False
+
+    def prepare(self, queries: torch.Tensor) -> torch.Tensor:
+        queries = queries.float()
+        if self.center is not None:
+            queries = queries - self.center
+        return pack_bits(queries)
+
+    def _sim(self, qcodes: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+        return bits_similarity(qcodes, codes, self.dim if self.dim else self.codes.shape[-1] * 32)
+
+    def score(self, qstate: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """qstate ``[Q, W]``, ids ``[Q, C]`` (>= 0) -> ``[Q, C]``."""
+        return self._sim(qstate[:, None, :], self.codes[ids.long()])
+
+    def score_nodes(self, node_ids: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Code-to-code scores: node_ids ``[B]``, ids ``[B, R]`` -> ``[B, R]``."""
+        return self._sim(self.codes[node_ids.long()][:, None, :], self.codes[ids.long()])
+
+    def pairwise(self, ids_a: torch.Tensor, ids_b: torch.Tensor) -> torch.Tensor:
+        """Batched all-pairs ``[B, Ca, Cb]`` (the BQ-scored build's prune)."""
+        return self._sim(self.codes[ids_a.long()][:, :, None, :], self.codes[ids_b.long()][:, None, :, :])

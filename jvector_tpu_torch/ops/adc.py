@@ -31,7 +31,7 @@ def build_partial_sums(
     qs = queries.float().reshape(queries.shape[0], m, s)
     dots = torch.einsum("qms,mks->qmk", qs, codebooks)
     if sim in (SimilarityFunction.DOT_PRODUCT, SimilarityFunction.COSINE):
-        return dots
+        return dots.contiguous()  # the einsum may hand back a permuted view; K5 reads [M, K] rows
     q2 = torch.sum(qs * qs, dim=-1)[:, :, None]
     c2 = torch.sum(codebooks * codebooks, dim=-1)[None, :, :]
     return torch.clamp(q2 + c2 - 2.0 * dots, min=0.0)

@@ -110,6 +110,11 @@ class ScalarQuantization4:
     def padded_dim(self) -> int:
         return self.scale.shape[0]
 
+    @property
+    def compressed_size(self) -> int:
+        """Bytes per encoded vector (packed nibbles)."""
+        return self.padded_dim // 2
+
     def _pad(self, x: torch.Tensor) -> torch.Tensor:
         d = x.shape[-1]
         if d < self.padded_dim:
@@ -124,6 +129,34 @@ class ScalarQuantization4:
             x = self._pad(torch.as_tensor(vectors[i : i + block], dtype=torch.float32, device=dev))
             k = torch.clamp(torch.round((x - self.offset) / self.scale), 0, 15)
             outs.append(pack_nibble_rows(k))
+        return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+
+    def level_codebooks(self) -> torch.Tensor:
+        """The quantizer viewed as PQ codebooks ``[D_pad, 16, 1]``: D
+        subspaces of size 1 with 16 fixed affine levels ``a_m * k + b_m``, so
+        SQ4 reuses the PQ machinery (the anisotropic descent) verbatim."""
+        k = torch.arange(16, dtype=torch.float32, device=self.scale.device)
+        return (self.scale[:, None] * k[None, :] + self.offset[:, None])[..., None]
+
+    def encode_anisotropic(
+        self, vectors: torch.Tensor | np.ndarray, threshold: float = 0.2, block: int = 65_536
+    ) -> torch.Tensor:
+        """Anisotropic SQ4 encoding (SCANN section 3.2 over scalar levels):
+        the per-vector coordinate descent of ``pq.encode_anisotropic`` on
+        :meth:`level_codebooks` (M = D_pad, K = 16, S = 1), which weights
+        error parallel to the vector ``eta`` times more than perpendicular
+        error.  For MIPS / dot-product corpora (BASELINE config 3).  Packed
+        ``uint8 [N, D_pad/2]`` on the quantizer's device."""
+        from jvector_tpu_torch.quantization.kmeans import compute_parallel_cost_multiplier
+        from jvector_tpu_torch.quantization.pq import encode_anisotropic
+
+        dev = self.scale.device
+        eta = compute_parallel_cost_multiplier(threshold, vectors.shape[1])
+        cbs = self.level_codebooks()
+        outs = []
+        for i in range(0, vectors.shape[0], block):
+            x = self._pad(torch.as_tensor(vectors[i : i + block], dtype=torch.float32, device=dev))
+            outs.append(pack_nibble_rows(encode_anisotropic(x, cbs, eta)))
         return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
 
     def decode(self, packed: torch.Tensor) -> torch.Tensor:
@@ -142,6 +175,11 @@ class ScalarQuantization4:
         v = ak + self.offset
         norm2 = torch.sum(v * v, dim=-1)
         return w2, norm2
+
+    def reconstruction_error(self, vectors: torch.Tensor | np.ndarray) -> float:
+        """Mean squared reconstruction error of the plain encode."""
+        x = torch.as_tensor(vectors, dtype=torch.float32, device=self.scale.device)
+        return float(torch.mean(torch.sum((self.decode(self.encode(x)) - x) ** 2, dim=1)))
 
     def provider_for_graph(self, codes_packed: torch.Tensor, neighbors: torch.Tensor, sim):
         """Full fused provider for a graph: builds the fused tables too.

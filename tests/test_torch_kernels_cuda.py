@@ -1,5 +1,5 @@
 """K1, K2, K3, K4a, K4b, K5, K6 and K7 kernels against their plain twins on
-a CUDA device.
+a CUDA device (K1, K2 and K5 also at BASELINE configs 3 and 4's shapes).
 
 The kernels have no CPU mode: without a card these tests skip, and
 ``chip_smoke.py`` runs the same comparison at the main-path shapes.  This
@@ -342,6 +342,33 @@ def test_k1_k2_empty_calls_launch_nothing(cuda_device):
     assert tsr.fused_update_inplace.launches == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k1_k2_match_twins_at_baseline_config4_width(cuda_device, seed):
+    """BASELINE config 4 (d = 1536): K1 on the packed adjacency of its
+    212,992-row capacity and K2 on 43,008-byte fused rows (MP = 768, 56
+    slots; the owner stages the whole row in shared memory, above the
+    default 48 KB only with the opt-in), each one launch equal to its twin."""
+    adj, w2t, args = _k1_wave_case(seed, p=16_896, n_pr=212_992 // 8, wa=64)
+    dev_args = [_t(a, cuda_device) for a in args]
+    ka, kw, ra, rw = (_t(x, cuda_device) for x in (adj, w2t, adj, w2t))
+    before = tpa.packed_adj_update_inplace.launches
+    tpa.packed_adj_update_inplace(ka, kw, *dev_args)
+    tpa.packed_adj_update_ref(ra, rw, *dev_args)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, ra) and torch.equal(kw, rw)
+    assert tpa.packed_adj_update_inplace.launches == before + 1
+
+    table, args = _k2_wave_case(seed, p=2_000, n=1_024, t3=336, mp=768, w=64, tail=(-1, _DROP)[seed])
+    dev_args = [_t(a, cuda_device) for a in args]
+    before = tsr.fused_update_inplace.launches
+    kt = tsr.fused_update_inplace(_t(table, cuda_device), *dev_args)
+    rt = tsr.fused_update_ref(_t(table, cuda_device), *dev_args)
+    torch.cuda.synchronize()
+    assert torch.equal(kt, rt) and not torch.equal(kt, _t(table, cuda_device))
+    assert tsr.fused_update_inplace.launches == before + 1
+
+
 def _k5_case(seed: int, q: int, c: int, m: int, k: int):
     """LUTs ``[Q, M, K]`` and uint8 codes ``[Q, C, M]`` below K."""
     rng = np.random.default_rng(seed)
@@ -354,8 +381,8 @@ def _k5_case(seed: int, q: int, c: int, m: int, k: int):
 @pytest.mark.parametrize(
     "q, c, m, k",
     [(4096, 56, 16, 256), (512, 112, 16, 256), (1, 70_000, 16, 256), (13, 19, 5, 32), (3, 40, 64, 256), (2, 9, 32, 16),
-     (1024, 56, 16, 256)],
-    ids=["serve", "build", "scan", "unaligned", "m_chunks", "k16", "refine_rescore"],
+     (1024, 56, 16, 256), (1024, 56, 24, 256)],
+    ids=["serve", "build", "scan", "unaligned", "m_chunks", "k16", "refine_rescore", "baseline_config3"],
 )
 def test_k5_kernel_matches_twin_on_card(cuda_device, q, c, m, k):
     """Only the order of the float32 sum differs (M = 64 stages the LUT in
@@ -401,6 +428,30 @@ def test_adc_score_nodes_through_k5_on_card(cuda_device, sim):
     def run(dev):
         prov = ADCScoreProvider(codes=_t(codes, dev), codebooks=_t(books, dev), center=None, sim=sim)
         return prov.score_nodes(_t(nodes, dev), _t(ids, dev))
+
+    before = tadc.adc_score_kernel.launches
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert tadc.adc_score_kernel.launches == before + (2 if sim == "cosine" else 1)
+    torch.testing.assert_close(got.cpu(), run("cpu"), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sim", ["dot_product", "cosine", "euclidean"])
+def test_adc_provider_serve_through_k5_at_baseline_config3(cuda_device, sim):
+    """BASELINE config 3's first pass (m = 24 on d = 96, uncentred, a
+    1024-query wave, 56 candidates each): ``prepare`` builds LUTs that K5
+    reads (the dot-product tables come back from the einsum contiguous)
+    and ``score`` agrees with the same call on the CPU."""
+    from jvector_tpu_torch.graph.score import ADCScoreProvider
+
+    rng = np.random.default_rng(6)
+    books, codes = rng.normal(size=(24, 256, 4)).astype(np.float32), rng.integers(0, 256, (4096, 24)).astype(np.uint8)
+    queries, ids = rng.normal(size=(1024, 96)).astype(np.float32), rng.integers(0, 4096, (1024, 56)).astype(np.int32)
+
+    def run(dev):
+        prov = ADCScoreProvider(codes=_t(codes, dev), codebooks=_t(books, dev), center=None, sim=sim)
+        return prov.score(prov.prepare(_t(queries, dev)), _t(ids, dev))
 
     before = tadc.adc_score_kernel.launches
     got = run(cuda_device)
