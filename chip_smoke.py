@@ -23,12 +23,16 @@ Phases, each printing one JSON line:
    rows), K4b (the same scatter on that table viewed 2-D, and on a
    ``[1,048,576, 64]`` float32 table) and K7 (slot scatter on the float32
    table, and 48-byte slots on the 2-D uint8 view) against their twins
-   (bit-exact); and K5 (PQ ADC) against its twin at the build, serve,
-   centroid-scan and an unaligned shape (``torch.allclose(rtol=1e-5,
-   atol=1e-4)``: only the order of the float32 sum differs), and K6 (LUT16
+   (bit-exact); and K5 (PQ ADC) against ``adc_score_ordered`` (its own
+   summation order: bit-exact, ``torch.equal``) at every ``K5_SHAPES``
+   shape, printing the wrapper's launch plan of each and, beside the
+   event times, the kernel's device us with a cold L2 (256 MB written
+   before each call), a clean-cold one (written, then read) and a warm
+   one, and its share of the byte bound; and K6 (LUT16
    ADC) against its twin at the flagship and 1M mips-96d serve shapes, the
-   micro's, the shared-table cosine norm and an unaligned shape (the same
-   tolerance); each with the median time of 20 runs from CUDA events,
+   micro's, the shared-table cosine norm and an unaligned shape
+   (``torch.allclose(rtol=1e-5, atol=1e-4)``: only the order of the
+   float32 sum differs); each with the median time of 20 runs from CUDA events,
    beside its bound (bytes over 3.35 TB/s) and the PyTorch call that
    computes the same function, where one does (K4a / K4b: ``index_copy_``,
    K7: ``index_put_``, K5: gather + sum, K6: a gather per nibble + sum);
@@ -180,7 +184,9 @@ Phases, each printing one JSON line:
 
 Phases run in this order, phase 10's parts inside phases 5, 6 and 7.  Kernel
 launch counts are read per path: set to 0 just before a path, read just
-after.  Float32 matrix products run in full float32: TF32 is switched
+after; K5's also by shape (``"QxCxM"``: ``k5_launches_by_shape``) on the
+default config's build, serve, refine and rescore and on every config-3
+and config-4 serve.  Float32 matrix products run in full float32: TF32 is switched
 off for matmuls and cuDNN.  The run uses one card (``CUDA_VISIBLE_DEVICES``
 is the first that ``CUDA_VISIBLE_DEVICES`` lists, else card 0).  Imports
 nothing of JAX.  The last line is the JSON
@@ -356,6 +362,76 @@ def launch_floor_us() -> float | None:
     word (``zero_`` on a 1-element tensor)."""
     word = torch.zeros(1, dtype=torch.int32, device="cuda")
     return device_us(word.zero_, reps=100)["device_us"]
+
+
+def event_us(fn, prep=None, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` in us from CUDA events, the median
+    over ``reps``.  With ``prep``, it runs before every call outside the
+    timed span (an L2 flush; it also keeps the host's enqueue out of the
+    span).  Without it the calls run back to back behind a device spin (a
+    warm L2), timed as one span."""
+    fn()
+    torch.cuda.synchronize()
+    if prep is None:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)  # ~2.5 ms: the host enqueues every call before the first runs
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps * 1e3
+    spans = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        prep()
+        a.record()
+        fn()
+        b.record()
+        spans.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in spans])) * 1e3
+
+
+def kernel_us(fn, match: str, prep=None, reps: int = 20) -> float | None:
+    """Device time per launch in us of the kernels whose name holds
+    ``match`` over ``reps`` calls of ``fn`` (each after ``prep`` where one
+    is given), from torch.profiler; None where the profiler recorded no
+    such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if prep is not None:
+                prep()
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+            if match in e.key and e.self_device_time_total > 0]
+    return sum(t for t, _ in rows) / sum(c for _, c in rows) if rows else None
+
+
+L2_FLUSH_BYTES = 256 * 2**20  # flushed through between calls for a cold L2: five times the H100's 50 MB
+
+
+def cold_warm_us(fn, match: str | None = None, flush: torch.Tensor | None = None) -> dict:
+    """``fn``'s device us a call: cold after a write of ``flush`` (256 MB of
+    uint8) between calls, which leaves the L2 full of dirty lines whose
+    write-back the call then pays for; clean-cold after a read of it; and
+    warm, back to back.  From CUDA events, and where ``match`` names the
+    kernel from torch.profiler (``device_*``)."""
+    if flush is None:
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    write, read = flush.zero_, (lambda: flush.sum())
+    out = {"event_cold_us": event_us(fn, write), "event_clean_cold_us": event_us(fn, lambda: (write(), read())),
+           "event_warm_us": event_us(fn)}
+    if match is not None:
+        out["device_cold_us"] = kernel_us(fn, match, write)
+        out["device_clean_cold_us"] = kernel_us(fn, match, lambda: (write(), read()))
+        out["device_warm_us"] = kernel_us(fn, match)
+    return out
 
 
 def phase_env() -> str:
@@ -712,23 +788,39 @@ def _k5_inputs(gen: torch.Generator, q: int, c: int, m: int, k: int):
     return luts, codes
 
 
-def _k5_check(gen, q, c, m, k, timed: bool) -> dict:
-    from jvector_tpu_torch.ops.adc import adc_score
-    from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel
+def _k5_bytes(luts: torch.Tensor, codes: torch.Tensor) -> int:
+    """K5's least traffic: each distinct table read once (one for a shared
+    table), the codes read once, the scores written once."""
+    tables = 1 if luts.stride(0) == 0 else luts.shape[0]
+    return tables * luts[0].numel() * 4 + codes.numel() + codes.shape[0] * codes.shape[1] * 4
+
+
+def _k5_check(gen, q, c, m, k, flush: torch.Tensor, timed: bool) -> dict:
+    """K5 at one shape: bit-equal to ``adc_score_ordered`` (its order) and
+    within float32 rounding of ``adc_score`` (the CPU paths' twin), the
+    wrapper's launch plan, and where ``timed`` the event ms of the wrapper,
+    the ordered twin and the library call, and :func:`cold_warm_us` of the
+    kernel with its share of the byte bound from each device time."""
+    from jvector_tpu_torch.ops.adc import adc_score, adc_score_ordered
+    from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel, plan_for
 
     luts, codes = _k5_inputs(gen, q, c, m, k)
     got = adc_score_kernel(luts, codes)
-    want = adc_score(luts, codes)
+    want = adc_score_ordered(luts, codes)
     torch.cuda.synchronize()
-    row = {"shape": {"Q": q, "C": c, "M": m, "K": k},
-           "allclose": bool(torch.allclose(got, want, rtol=1e-5, atol=1e-4)),
-           "max_abs_err": float((got - want).abs().max()),
-           "bytes": luts.numel() * 4 + codes.numel() + got.numel() * 4}
+    row = {"shape": {"Q": q, "C": c, "M": m, "K": k}, "plan": plan_for(luts, codes)._asdict(),
+           "bit_equal": bool(torch.equal(got, want)), "max_abs_err": float((got - want).abs().max()),
+           "max_abs_err_vs_adc_score": float((got - adc_score(luts, codes)).abs().max()),
+           "bytes": _k5_bytes(luts, codes)}
     row["bound_ms"] = bound_ms(row["bytes"])
     if timed:
         row["ms"] = median_ms(lambda: adc_score_kernel(luts, codes))
-        row["plain_ms"] = median_ms(lambda: adc_score(luts, codes))
+        row["plain_ms"] = median_ms(lambda: adc_score_ordered(luts, codes))
         row["library_ms"] = median_ms(lambda: _k5_library(luts, codes))
+        row.update(cold_warm_us(lambda: adc_score_kernel(luts, codes), "adc_ring_kernel", flush))
+        for key in ("cold", "clean_cold", "warm"):
+            dev_us = row[f"device_{key}_us"]
+            row[f"share_of_bound_{key}"] = row["bound_ms"] * 1e3 / dev_us if dev_us else None
     return row
 
 
@@ -749,7 +841,7 @@ K5_SHAPES = {
     "build_search": (512, 112, 16, 256),
     "build_intra_wave": (512, 512, 16, 256),
     "refine_search_rescore": (1024, 56, 16, 256),
-    "baseline_config3_serve": (1024, 56, 24, 256),  # anisotropic PQ, m = 24 on d = 96, 1024-query waves
+    "baseline_config3_serve": (1024, 64, 24, 256),  # anisotropic PQ, m = 24 on d = 96, 1024-query waves, 64 slots
     "centroid_scan": (1, 1_000_000, 16, 256),
     "unaligned": (13, 19, 5, 32),
 }
@@ -928,12 +1020,16 @@ def phase_kernel_check() -> list[dict]:
                 **{k: v for k, v in k2.items() if k != "max_abs_err"}, "baseline_config4_row": k2_wide})
 
     gen = torch.Generator(device=dev).manual_seed(1234)
-    rows = {name: _k5_check(gen, *shape, timed=name != "unaligned")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows = {name: _k5_check(gen, *shape, flush=flush, timed=name != "unaligned")
             for name, shape in K5_SHAPES.items()}
+    del flush
+    for name, r in rows.items():  # the launch plan of each shape, as the wrapper's planner chose it
+        print(f"K5 plan {name} {r['shape']}: {r['plan']}", flush=True)
     emit({"phase": "kernel_check", "kernel": "K5 adc_score_kernel", "shapes": rows})
-    bad = [name for name, r in rows.items() if not r["allclose"]]
+    bad = [name for name, r in rows.items() if not r["bit_equal"]]
     if bad:
-        raise SystemExit(f"K5 disagrees with its twin at {bad}")
+        raise SystemExit(f"K5 differs from adc_score_ordered at {bad}")
     serve = rows["serve"]
     out.append({"name": "adc_score_kernel", "route": "cuda",
                 "source": "jvector_tpu_torch/csrc/adc.cu",
@@ -941,8 +1037,8 @@ def phase_kernel_check() -> list[dict]:
                 "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
                 "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
                 "bound_by": "bytes", "library_ms": serve["library_ms"],
-                "baseline_config3_serve": {k: rows["baseline_config3_serve"][k]
-                                           for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}})
+                "shapes": {name: {k: v for k, v in r.items() if k not in ("plan", "bytes")}
+                           for name, r in rows.items()}})
 
     rows = {name: _k6_check(gen, *shape, timed=name != "unaligned") for name, shape in K6_SHAPES.items()}
     emit({"phase": "kernel_check", "kernel": "K6 adc16_score_kernel", "shapes": rows})
@@ -985,6 +1081,13 @@ def _counters() -> dict:
 def reset_counts() -> None:
     for fn in _counters().values():
         fn.launches = 0
+    _counters()["adc_score_kernel"].by_shape.clear()
+
+
+def read_k5_shapes() -> dict:
+    """K5's launches since the last :func:`reset_counts` by shape, ``"QxCxM"``."""
+    return {"x".join(map(str, shape)): n
+            for shape, n in sorted(_counters()["adc_score_kernel"].by_shape.items(), key=lambda kv: -kv[1])}
 
 
 def read_counts() -> dict:
@@ -1444,11 +1547,13 @@ def _refine_rescore(graph, build_prov, first, exact, base, queries, gt, cfg, rec
     reset_counts()
     refined, refine_s = _timed(lambda: refine_graph(graph, build_prov, base, cfg, chunk=1024))
     refine_launches = read_counts()
+    refine_k5 = read_k5_shapes()
     res = search(refined, first, queries, top_k=TOP_K, beam_width=100, rerank_k=100, reranker=exact)
     after = recall_at_k(_check_result(res, queries.shape[0], "search on the refined graph"), gt, TOP_K)
     reset_counts()
     rescored, rescore_s = _timed(lambda: rescore_graph(refined, build_prov, chunk=1024))
     rescore_launches = read_counts()
+    rescore_k5 = read_k5_shapes()
     old, new, cnt = refined.base.neighbors[:n], rescored.base.neighbors[:n], refined.base.counts[:n]
     valid = torch.arange(old.shape[1], device=old.device)[None, :] < cnt[:, None]
     big = torch.iinfo(torch.int32).max
@@ -1464,7 +1569,8 @@ def _refine_rescore(graph, build_prov, first, exact, base, queries, gt, cfg, rec
             "average_degree": {"before": graph.average_degree(), "after": refined.average_degree()},
             "refine_seconds": refine_s, "rescore_seconds": rescore_s,
             "rows_with_changed_id_sets": changed_sets, "rows_unsorted": unsorted,
-            "launches": {"refine": refine_launches, "rescore": rescore_launches}}
+            "launches": {"refine": refine_launches, "rescore": rescore_launches},
+            "k5_launches_by_shape": {"refine": refine_k5, "rescore": rescore_k5}}
     fails = []
     if reference is not None:
         allowed = max(0.0, reference[0] - reference[1]) + REFINE_SLACK
@@ -1525,6 +1631,7 @@ def phase_default_config(n: int, dev: torch.device, n_queries: int, n_clusters: 
     torch.cuda.synchronize()
     build_s = time.time() - t0
     build_launches = read_counts()
+    build_k5 = read_k5_shapes()
     recon = pq.reconstruction_error(base[: min(n, 131_072)])
 
     exact = ExactScoreProvider(vectors=torch.nn.functional.pad(base, (0, 0, 0, n_cap - n)))
@@ -1553,6 +1660,7 @@ def phase_default_config(n: int, dev: torch.device, n_queries: int, n_clusters: 
     fused_recall = recall_at_k(ids, gt, TOP_K)
     fused_qps = _qps(lambda q: run(fused, q, 100), queries) if timed_beams else None
     serve_launches = read_counts()
+    serve_k5 = read_k5_shapes()
 
     result = {
         "phase": "default_config", "n": n, "dim": 128, "queries": n_queries, "gt_queries": gt_queries,
@@ -1566,6 +1674,7 @@ def phase_default_config(n: int, dev: torch.device, n_queries: int, n_clusters: 
         "qps": {str(b): q for b, q in qps.items()},
         "fused_pq": {"recall_100": fused_recall, "qps_100": fused_qps, "table_seconds": fused_s},
         "launches": {"build": build_launches, "serve": serve_launches},
+        "k5_launches_by_shape": {"build": build_k5, "serve": serve_k5},
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(result)
@@ -1945,7 +2054,7 @@ def _operating(run, queries: torch.Tensor, gt: np.ndarray, what: str, beams=BASE
     torch.cuda.synchronize()
     return {"recall": {str(b): r for b, r in recalls.items()}, "operating_beam": beam,
             "reaches_0.95": chosen is not None, "qps": BASELINE_QUERIES / (time.time() - t0),
-            "launches": read_counts()}
+            "launches": read_counts(), "k5_launches_by_shape": read_k5_shapes()}
 
 
 def _serve_split(first_only, full, queries: torch.Tensor) -> dict:

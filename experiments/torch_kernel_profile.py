@@ -1,22 +1,32 @@
 """Device time of the port's K1/K2/K3/K4a/K4b/K5/K6/K7 CUDA kernels alone, and their register use.
 
     python experiments/torch_kernel_profile.py
+    python experiments/torch_kernel_profile.py --k5 [--rounds 2]
     python experiments/torch_kernel_profile.py --parent DIR [--rounds 3]
 
-With ``--parent``, DIR holds another revision's ``packed_adj.cu`` and
-``fused_update.cu`` (for instance ``git show REV:jvector_tpu_torch/csrc/packed_adj.cu
-> DIR/packed_adj.cu``, in a git-ignored directory such as ``_scratch/``):
-the script builds them beside the tree's, checks that both give the same
-tables, and times K1, K3 and K2 through the same wrappers in turns,
-parent, change, change, parent, ``--rounds`` times over, printing every
-sample and the medians with the launch floor and the host time per call.
+With ``--parent``, DIR holds another revision's kernel sources (for
+instance ``git show REV:jvector_tpu_torch/csrc/adc.cu > DIR/adc.cu``, in a
+git-ignored directory such as ``_scratch/``): the script builds those it
+finds beside the tree's, checks that both give the same results, and
+times them through the same calls in turns, parent, change, change,
+parent, ``--rounds`` times over, printing every sample and the medians.
+``packed_adj.cu`` with ``fused_update.cu``: K1, K3 and K2 device time
+with the launch floor and the host time per call.  ``adc.cu``: K5 at
+every ``chip_smoke.K5_SHAPES`` shape and the refine and BASELINE config 3
+shapes at Q = 2048 and 4096 (:func:`k5_profile`).
 
-Compiles ``jvector_tpu_torch/csrc/*.cu`` once more with ``-Xptxas -v`` and
-prints each kernel's register and spill lines, then times 20 calls of each
-wrapper at the 1M path shapes of ``chip_smoke.py`` (K5 at its serve,
-build-search and centroid-scan shapes; K6 at its timed serve, micro and
-shared-table shapes; K4a, K4b and K7 at the 1M mips-96d build shapes of
-its scatter check) under ``torch.profiler`` and prints
+``--k5`` alone runs :func:`k5_profile` on the tree's K5: each shape's
+device us a call with a cold L2 (256 MB written before every call,
+outside the timed span) and a warm one (back to back), from CUDA events
+and torch.profiler, beside its byte bound, its share of that bound, the
+library call's event times and the wrapper's launch plan.
+
+Without either, compiles ``jvector_tpu_torch/csrc/*.cu`` once more with
+``-Xptxas -v`` and prints each kernel's register and spill lines, then
+times 20 calls of each wrapper at the 1M path shapes of ``chip_smoke.py``
+(K5 at its serve, build-search and centroid-scan shapes; K6 at its timed
+serve, micro and shared-table shapes; K4a, K4b and K7 at the 1M mips-96d
+build shapes of its scatter check) under ``torch.profiler`` and prints
 the device time per call of each (``chip_smoke.device_us``: the sum over
 the kernels a call launches, with their names and counts per call), with
 its bound (bytes over 3.35 TB/s) beside it, and the launch floor,
@@ -45,7 +55,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+from jvector_tpu_torch.ops.adc import adc_score_ordered  # noqa: E402
 from jvector_tpu_torch.ops.kernels import _build  # noqa: E402
+from jvector_tpu_torch.ops.kernels import adc as tadc  # noqa: E402
 from jvector_tpu_torch.ops.kernels import packed_adj as tpa  # noqa: E402
 from jvector_tpu_torch.ops.kernels import scatter_rows as tsr  # noqa: E402
 from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel  # noqa: E402
@@ -67,22 +79,23 @@ def ptxas_usage(source: str) -> list[str]:
     return [ln.strip() for ln in proc.stderr.splitlines() if "registers" in ln or "spill" in ln]
 
 
+def _parent_lib(src_dir: str, out_dir: str, source: str, functions: dict) -> ctypes.CDLL:
+    """Build ``src_dir/source`` and bind ``functions`` (name -> argtypes)."""
+    out = os.path.join(out_dir, f"parent_{source}.so")
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, os.path.join(src_dir, source)], check=True)
+    lib = ctypes.CDLL(out)
+    for name, argtypes in functions.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
 def parent_libs(src_dir: str, out_dir: str) -> dict:
     """Build K1/K3's and K2's sources from ``src_dir`` (same C entry points as
     the tree's) and bind them with the tree's wrappers' argument types."""
-    libs = {}
-    for source, functions in (
-        ("packed_adj.cu", {"jv_packed_adj_update": tpa._ARGTYPES, "jv_packed_adj_only_update": tpa._ONLY_ARGTYPES}),
-        ("fused_update.cu", {"jv_fused_update": tsr._ARGTYPES}),
-    ):
-        out = os.path.join(out_dir, f"parent_{source}.so")
-        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, os.path.join(src_dir, source)], check=True)
-        lib = ctypes.CDLL(out)
-        for name, argtypes in functions.items():
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
-        libs[source] = lib
-    return libs
+    return {"packed_adj.cu": _parent_lib(src_dir, out_dir, "packed_adj.cu", {
+                "jv_packed_adj_update": tpa._ARGTYPES, "jv_packed_adj_only_update": tpa._ONLY_ARGTYPES}),
+            "fused_update.cu": _parent_lib(src_dir, out_dir, "fused_update.cu", {"jv_fused_update": tsr._ARGTYPES})}
 
 
 @contextlib.contextmanager
@@ -99,7 +112,89 @@ def using(libs: dict | None):
         tpa._lib, tsr._lib = own
 
 
+# K5 beyond chip_smoke.K5_SHAPES: the refine's and BASELINE config 3's shapes
+# at more queries, to see whether the share of the bound follows Q
+K5_Q_SWEEP = {f"{name}_q{q}": (q, c, m, 256)
+              for name, c, m in (("refine_search_rescore", 56, 16), ("baseline_config3_serve", 64, 24))
+              for q in (2048, 4096)}
+
+
+def parent_k5(src_dir: str, out_dir: str):
+    """A call ``(luts, codes) -> out`` through ``src_dir/adc.cu``: through
+    the tree's wrapper where that source takes the wrapper's launch plan,
+    else through the entry ``jv_adc_score(luts, lut_q_stride, codes, out,
+    q, c, m, k, stream)`` of the kernel before the plan."""
+    with open(os.path.join(src_dir, "adc.cu")) as f:
+        planned = "jv_adc_score_planned" in f.read()
+    if planned:
+        lib = _parent_lib(src_dir, out_dir, "adc.cu", {"jv_adc_score_planned": tadc._ARGTYPES})
+
+        def call(luts, codes):
+            own = tadc._lib
+            tadc._lib = lambda: lib
+            try:
+                return tadc.adc_score_kernel(luts, codes)
+            finally:
+                tadc._lib = own
+        return call
+    argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
+    lib = _parent_lib(src_dir, out_dir, "adc.cu", {"jv_adc_score": argtypes + [ctypes.c_void_p]})
+
+    def call(luts, codes):
+        q, m, k = luts.shape
+        out = torch.empty((q, codes.shape[1]), dtype=torch.float32, device=luts.device)
+        err = lib.jv_adc_score(luts.data_ptr(), luts.stride(0), codes.data_ptr(), out.data_ptr(), q, codes.shape[1],
+                               m, k, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "parent adc_score")
+        return out
+    return call
+
+
+def k5_profile(parent=None, rounds: int = 2) -> None:
+    """K5 at every ``chip_smoke.K5_SHAPES`` shape and :data:`K5_Q_SWEEP`:
+    output bit-equal to ``adc_score_ordered`` (and to the parent's, with
+    ``parent``), then ``chip_smoke.cold_warm_us`` of each version in turns
+    (parent, change, change, parent with a parent), ``rounds`` times; one
+    JSON line a shape with every sample, the medians, the byte bound and
+    each median's share of it, the library call's times and the plan."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = torch.empty(chip_smoke.L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    versions = {"change": tadc.adc_score_kernel}
+    order = ("change",)
+    if parent is not None:
+        versions["parent"] = parent
+        order = ("parent", "change", "change", "parent")
+    for name, shape in {**chip_smoke.K5_SHAPES, **K5_Q_SWEEP}.items():
+        luts, codes = chip_smoke._k5_inputs(gen, *shape)
+        want = adc_score_ordered(luts, codes)
+        outs = {v: f(luts, codes) for v, f in versions.items()}
+        torch.cuda.synchronize()
+        bound_us = chip_smoke.bound_ms(chip_smoke._k5_bytes(luts, codes)) * 1e3
+        row = {"shape": name, "QCMK": list(shape), "bound_us": bound_us, "plan": tadc.plan_for(luts, codes)._asdict(),
+               "bit_equal_to_ordered": {v: bool(torch.equal(o, want)) for v, o in outs.items()},
+               "max_abs_diff_to_ordered": {v: float((o - want).abs().max()) for v, o in outs.items()}}
+        samples = {v: [] for v in versions}
+        for _ in range(rounds):
+            for v in order:
+                samples[v].append(chip_smoke.cold_warm_us(lambda f=versions[v]: f(luts, codes), "adc", flush))
+        med = {v: {key: float(np.median([s[key] for s in xs if s[key] is not None]))
+                   if any(s[key] is not None for s in xs) else None for key in xs[0]} for v, xs in samples.items()}
+        row["median_us"] = med
+        row["share_of_bound"] = {v: {key: (bound_us / t if t else None) for key, t in m.items()} for v, m in med.items()}
+        row["library_us"] = chip_smoke.cold_warm_us(lambda: chip_smoke._k5_library(luts, codes), None, flush)
+        row["samples_us"] = samples
+        print(json.dumps(row), flush=True)
+        del luts, codes, want, outs
+    print(json.dumps({"launch_floor_us": chip_smoke.launch_floor_us()}), flush=True)
+
+
 def compare_parent(src_dir: str, rounds: int) -> None:
+    if os.path.exists(os.path.join(src_dir, "adc.cu")):
+        with tempfile.TemporaryDirectory() as tmp:
+            k5_profile(parent_k5(src_dir, tmp), rounds)
+    if not os.path.exists(os.path.join(src_dir, "packed_adj.cu")):
+        return
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
     adj, w2t, k1_args = chip_smoke._k1_inputs(rng, dev)
@@ -143,15 +238,20 @@ def compare_parent(src_dir: str, rounds: int) -> None:
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--parent", help="directory with another revision's packed_adj.cu and fused_update.cu")
+    p.add_argument("--parent", help="directory with another revision's adc.cu and / or packed_adj.cu and "
+                                     "fused_update.cu")
+    p.add_argument("--k5", action="store_true", help="K5's cold and warm times at every shape, no parent")
     p.add_argument("--rounds", type=int, default=3, help="parent, change, change, parent rounds (with --parent)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     for src in ("packed_adj.cu", "fused_update.cu", "scatter_rows.cu", "adc.cu", "adc16.cu"):
         print(json.dumps({"source": src, "ptxas": ptxas_usage(src)}), flush=True)
-    if args.parent:
-        compare_parent(args.parent, args.rounds)
+    if args.parent or args.k5:
+        if args.parent:
+            compare_parent(args.parent, args.rounds)
+        else:
+            k5_profile(rounds=args.rounds)
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip(), flush=True)
         return
@@ -189,7 +289,7 @@ def main() -> None:
     for shape in ("serve", "build_search", "centroid_scan"):
         luts, codes = chip_smoke._k5_inputs(gen, *chip_smoke.K5_SHAPES[shape])
         name = f"K5 adc_score_kernel {shape}"
-        bounds[name] = chip_smoke.bound_ms(luts.numel() * 4 + codes.numel() + codes.shape[0] * codes.shape[1] * 4) * 1e3
+        bounds[name] = chip_smoke.bound_ms(chip_smoke._k5_bytes(luts, codes)) * 1e3
         calls.append((name, lambda luts=luts, codes=codes: adc_score_kernel(luts, codes)))
     for shape in ("serve_200k", "serve_mips_1m", "micro", "cosine_norm_shared"):
         luts, codes = chip_smoke._k6_inputs(gen, *chip_smoke.K6_SHAPES[shape])

@@ -5,7 +5,9 @@
    query's raw measure (one batched product for the whole wave).
 2. :func:`adc_score` — assemble-and-sum: gather one LUT entry per subspace
    and sum.  It is the plain twin of the K5 kernel
-   (``ops/kernels/adc.py``), which the score providers call.
+   (``ops/kernels/adc.py``), which the score providers call, on CPU
+   tensors; :func:`adc_score_ordered` is the same function in K5's own
+   summation order, which the kernel equals bit for bit.
 
 Callers apply ``normalize_score``; COSINE also needs
 :func:`partial_squared_magnitudes`.
@@ -54,6 +56,18 @@ def adc_score(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     flat_idx = codes.long() + torch.arange(m, device=codes.device) * k  # [Q, C, M]
     gathered = torch.gather(luts.reshape(q, m * k), 1, flat_idx.reshape(q, c * m))
     return gathered.reshape(q, c, m).sum(dim=-1)
+
+
+def adc_score_ordered(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """:func:`adc_score` with K5's summation order: one float32 accumulator
+    per candidate, starting at 0 and adding ``luts[q, m, codes[q, c, m]]``
+    for m ascending (the Pallas kernel's loop), so the K5 kernel's output
+    equals this bit for bit."""
+    idx = codes.long()
+    acc = torch.zeros(codes.shape[:2], dtype=torch.float32, device=codes.device)
+    for m in range(luts.shape[1]):
+        acc = acc + torch.gather(luts[:, m], 1, idx[:, :, m])
+    return acc
 
 
 def adc_score_shared(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

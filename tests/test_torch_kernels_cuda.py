@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from jvector_tpu_torch.ops.adc import adc_score
+import chip_smoke
+from jvector_tpu_torch.ops.adc import adc_score, adc_score_ordered
 from jvector_tpu_torch.ops.adc16 import adc16_ref
 from jvector_tpu_torch.ops.kernels import adc as tadc
 from jvector_tpu_torch.ops.kernels import adc16 as tadc16
@@ -385,8 +386,8 @@ def _k5_case(seed: int, q: int, c: int, m: int, k: int):
     ids=["serve", "build", "scan", "unaligned", "m_chunks", "k16", "refine_rescore", "baseline_config3"],
 )
 def test_k5_kernel_matches_twin_on_card(cuda_device, q, c, m, k):
-    """Only the order of the float32 sum differs (M = 64 stages the LUT in
-    two M-chunks at K = 256)."""
+    """Against the CPU paths' twin only the order of the float32 sum
+    differs; against ``adc_score_ordered`` nothing does."""
     luts, codes = _k5_case(q + c, q, c, m, k)
     tl, tc = _t(luts, cuda_device), _t(codes, cuda_device)
     before = tadc.adc_score_kernel.launches
@@ -394,6 +395,63 @@ def test_k5_kernel_matches_twin_on_card(cuda_device, q, c, m, k):
     torch.cuda.synchronize()
     assert tadc.adc_score_kernel.launches == before + 1
     torch.testing.assert_close(got, adc_score(tl, tc), rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, adc_score_ordered(tl, tc))
+
+
+K5_EDGE_SHAPES = {**chip_smoke.K5_SHAPES, "m48": (64, 40, 48, 256), "m64": (3, 40, 64, 256), "m96": (300, 40, 96, 256),
+                  "m300_chunked": (50, 40, 300, 256), "c1": (7, 1, 16, 256), "k10_cp_async": (9, 33, 5, 10),
+                  "q1_one_warp": (1, 20, 16, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K5_EDGE_SHAPES))
+def test_k5_bit_equal_to_ordered_twin(cuda_device, name):
+    """Every ``chip_smoke.K5_SHAPES`` shape, the opt-in shared memory (M = 48,
+    64, 96), M-chunks (M = 300), one candidate, 200-byte tables (K = 10,
+    no bulk copy) and one query's table shared by a one-warp block: bit for
+    bit ``adc_score_ordered``, one launch counted under its shape."""
+    q, c, m, k = K5_EDGE_SHAPES[name]
+    luts, codes = _k5_case(q + m, q, c, m, k)
+    tl, tc = _t(luts, cuda_device), _t(codes, cuda_device)
+    before = tadc.adc_score_kernel.by_shape[(q, c, m)]
+    got = tadc.adc_score_kernel(tl, tc)
+    torch.cuda.synchronize()
+    assert tadc.adc_score_kernel.by_shape[(q, c, m)] == before + 1
+    assert torch.equal(got, adc_score_ordered(tl, tc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["shared_table", "shared_table_luts_offset_4", "codes_offset_1", "codes_offset_8",
+                                  "luts_offset_4"])
+def test_k5_bit_equal_on_shared_and_misaligned_inputs(cuda_device, what):
+    """A stride-0 table (copied once a block), codes one and eight bytes off
+    a 16-byte boundary (byte and 8-byte code loads) and tables four bytes
+    off it (cp.async copies in place of the bulk copy, also for a shared
+    table)."""
+    q, c, m, k = 1024, 56, 16, 256
+    luts, codes = _k5_case(11, q, c, m, k)
+    tl, tc = _t(luts, cuda_device), _t(codes, cuda_device)
+    if "luts_offset" in what:
+        raw = torch.zeros(tl.numel() + 1, dtype=torch.float32, device=cuda_device)
+        raw[1:] = tl.reshape(-1)
+        tl = raw[1:].view(q, m, k)
+    if what.startswith("shared_table"):
+        tl = tl[:1].expand(q, -1, -1)
+    elif what.startswith("codes_offset"):
+        off = int(what.rsplit("_", 1)[1])
+        raw = torch.zeros(tc.numel() + off, dtype=torch.uint8, device=cuda_device)
+        raw[off:] = tc.reshape(-1)
+        tc = raw[off:].view(q, c, m)
+    assert torch.equal(tadc.adc_score_kernel(tl, tc), adc_score_ordered(tl, tc))
+
+
+@pytest.mark.cuda
+def test_k5_bit_equal_on_a_million_candidate_scan(cuda_device):
+    """Q = 1, C = 1M (the cleanup's centroid scan): the candidates split over
+    the card's blocks, each copying the one table."""
+    luts, codes = _k5_case(12, 1, 1_000_000, 16, 256)
+    tl, tc = _t(luts, cuda_device), _t(codes, cuda_device)
+    assert torch.equal(tadc.adc_score_kernel(tl, tc), adc_score_ordered(tl, tc))
 
 
 @pytest.mark.cuda
