@@ -95,7 +95,51 @@ Phases, each printing one JSON line:
    Fails if the real wave's tables differ, if recall@10 at beam 100 is
    below 0.95 (SQ4 or LUT16), if K1's or K2's launch count over the build
    differs from the number of build waves, or if K6 did not launch in the
-   LUT16 serve;
+   LUT16 serve.  Then, on the same graph, corpus and ground truth, the
+   **lifecycle** (``"phase": "lifecycle"``, each step's seconds and the
+   kernels it launched): (1) ``mark_deleted`` on a tenth of the nodes
+   (20,000 at 200k, a sorted draw from ``default_rng(11)``), searched at
+   beam 100 (SQ4 code-row first pass + exact rerank, as every lifecycle
+   search but NN-descent's): no deleted id may come back, and the caller's
+   graph must be unchanged (sha256 of its tables) and still serve at 0.95;
+   (2) ``remove_deleted``: no edge into a deleted node, a live entry, and
+   recall@10 over 1024 queries against the exact top-10 of the live nodes
+   >= 0.95 and within 0.02 of the tombstoned graph's before the splice
+   (the same edges as before the delete, deleted results filtered), and
+   at beam 20, where the SQ4 path is below 1.0, not more than 0.02 under
+   the tombstoned graph's at beam 20; the live rows' average degree above
+   what dropping the edges into deleted nodes would leave them (the 2-hop
+   repair adds edges; recall alone barely tells the two apart,
+   ``experiments/torch_splice_drop_only_cpu.py``);
+   (3) ``add_nodes`` re-inserts the deleted vectors as new ordinals:
+   recall@10 against the full corpus's ground truth, ids mapped, >= 0.95,
+   at beam 20 not more than 0.02 under the tombstoned graph's, and the
+   spliced graph unchanged (sha256); (4) ``nn_descent_build`` over
+   the same vectors, recall@10 (exact first pass) at beams 50 and 100
+   against their own exact top-10, held at beam 100 within 0.03 of the JAX
+   package's (``experiments/torch_lifecycle_cpu.py``, at 200k only);
+   (5) the spliced graph (``renumber=False``: its tombstones are the live
+   mask) and the segment saved with inline vectors and merged by
+   ``compact_on_disk`` in waves of 1024 under a 128 MiB ledger budget:
+   the whole corpus again, mapped through the mappers; (6)
+   ``DeviceTierIndex.load`` of the merged file, recall@10 at the SQ4
+   path's beams and QPS at beam 100 over the 8192 queries in 4096-query
+   waves (recall at beam 100 >= 0.95), ``hbm_bytes`` beside the phase's
+   ``torch.cuda.max_memory_allocated``; (7) ``compact_indexes(pq=...)`` at
+   20,000 (the 128-d corpus of phase 8, three segments of 8,334 / 6,666 /
+   5,000 built by the port, a base PQ at m = 16, K = 256 on the first,
+   retrained on the merged sample; every graph score on codes, so K5
+   launches: ``launches_by_path["lifecycle_pq_compaction"]``, by shape in
+   ``k5_launches_by_shape``), recall@10 with exact rerank at beams 50 and
+   100, at beam 100 no more than 0.03 under the lowest of the JAX
+   package's eight retrain seeds; then the same merge with
+   ``retrain=False`` on codebooks both packages draw alike without
+   training (``launches_by_path["lifecycle_pq_compaction_carried"]``),
+   held at beam 100 within 0.01 of the JAX package's (both checks at 200k
+   runs only); (8) ``ProductQuantization.compute``
+   twice from one seed on 131,072 rows, plain PQ (m = 16, d = 128) and
+   config 3's anisotropic PQ (m = 24, d = 96, T = 0.2): the codebooks must
+   be bit-equal (``torch.equal``);
 7. default configuration (upstream JVector's ``yaml-configs/default.yml``:
    outDegree 32, efConstruction 100, overflow 1.2, hierarchy, PQ
    construction and search with M = d/8 = 16, K = 256, no centering, FP32
@@ -121,7 +165,10 @@ Phases, each printing one JSON line:
    draws move recall more than the slack);
 9. micro: ``jvector_tpu_torch.bench.micro.run_micro()`` at its defaults
    (n = 100,000, d = 128, 1024 queries, waves of 256), its eight rows and
-   the launches over them; fails if K5 or K6 did not launch;
+   the launches over them, then its compaction row (``run_compact_micro``
+   at its defaults: two SQ4 segments of 25,000 at d = 64 stream-built,
+   ``compact_on_disk`` timed; its seconds and launches apart); fails if K5
+   or K6 did not launch;
 10. search API, one ``"phase": "search_api"`` line per graph, each part
    run before its graph is freed (ground truth exact, on the card; recall
    over 1024 queries, seconds over one 4096-query wave): in phase 5, the
@@ -185,9 +232,10 @@ Phases, each printing one JSON line:
 Phases run in this order, phase 10's parts inside phases 5, 6 and 7.  Kernel
 launch counts are read per path: set to 0 just before a path, read just
 after; K5's also by shape (``"QxCxM"``: ``k5_launches_by_shape``) on the
-default config's build, serve, refine and rescore and on every config-3
-and config-4 serve.  Float32 matrix products run in full float32: TF32 is switched
-off for matmuls and cuDNN.  The run uses one card (``CUDA_VISIBLE_DEVICES``
+default config's build, serve, refine and rescore, on every config-3
+and config-4 serve and on the lifecycle's two PQ-sidecar compactions.
+Float32 matrix products run in full float32: TF32 is switched off for
+matmuls and cuDNN.  The run uses one card (``CUDA_VISIBLE_DEVICES``
 is the first that ``CUDA_VISIBLE_DEVICES`` lists, else card 0).  Imports
 nothing of JAX.  The last line is the JSON
 ``{"ok": true, "device": {...}}``; any failure raises before it.
@@ -300,6 +348,41 @@ JAX_BASELINE_20K = {
                    120: 0.999609375},
 }
 BASELINE_PARITY_HELD = ("c3_aniso_pq", "c3_aniso_sq4", "c4_bq_nvq")
+# the lifecycle phase (inside the SQ4 path, on its corpus, graph and ground
+# truth): a tenth of the nodes deleted (a sorted draw from
+# default_rng(LIFECYCLE_SEED)), spliced out and inserted again; the same
+# vectors as an NN-descent segment; the spliced graph and that segment
+# compacted on disk in waves of LIFECYCLE_WAVE under LIFECYCLE_BUDGET bytes
+# of the compactor's own device tensors (its ledger); the merged file
+# served by the device tier; a 20k PQ-sidecar compaction; PQ trained twice
+# from one seed on LIFECYCLE_DETERMINISM_ROWS rows.  The JAX package's
+# recall@10 for the NN-descent segment (exact first pass) and the 20k
+# PQ-sidecar compaction (ADC first pass, exact rerank at rerank_k = beam),
+# at beams 50 and 100 over 1024 queries, come from
+#     JAX_PLATFORMS=cpu python experiments/torch_lifecycle_cpu.py --seeds 8
+# (at --n 200000 only): NN-descent at beam 100 within PARITY_SLACK; the
+# retrained compaction at beam 100 no more than PARITY_SLACK under the
+# lowest of the retrain's k-means seeds 0-7 (the port cannot draw
+# jax.random's samples, and the port's own eight seeds spread 0.4096-0.4506,
+# experiments/torch_pq_compaction_seeds.py on the card, against the JAX
+# package's 0.4238-0.4411); the compaction with retrain=False on codebooks
+# both packages draw alike without training (_carried_codebooks) at beam
+# 100 within LIFECYCLE_CARRIED_SLACK of the JAX package's.  The splice and
+# the insert are held at LIFECYCLE_LOW_BEAM too, where recall is below 1.0
+LIFECYCLE_SEED = 11
+LIFECYCLE_WAVE = 1024
+LIFECYCLE_BUDGET = 128 * 2**20
+LIFECYCLE_SPLICE_SLACK = 0.02
+LIFECYCLE_LOW_BEAM = 20
+LIFECYCLE_CARRIED_SLACK = 0.01
+LIFECYCLE_DETERMINISM_ROWS = 131_072
+LIFECYCLE_PQ_SPLITS = ((0, 8_334), (8_334, 15_000), (15_000, 20_000))
+JAX_NNDESCENT_RECALL_20K = {50: 0.92060546875, 100: 0.945703125}
+JAX_PQ_COMPACTION_RECALL_20K = {"seed_0": {50: 0.30087890625, 100: 0.44111328125},
+                                "mean": {50: 0.28896484375, 100: 0.43182373046875},
+                                "min": {50: 0.2818359375, 100: 0.423828125},
+                                "max": {50: 0.30087890625, 100: 0.44111328125}}
+JAX_PQ_CARRIED_RECALL_20K = {50: 0.5810546875, 100: 0.7779296875}
 # README.md's figures for these configs: the JAX package on a TPU v5e at 1M
 # (config 3) and 200k (config 4); printed beside the port's, never a target
 README_TPU_V5E = {"c3_aniso_sq4": {"beam": 30, "recall": 0.9535, "qps": 34_814},
@@ -834,7 +917,11 @@ def _k5_library(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 # build step, 64 slots on the SQ4-built upper levels), the refine's beam
 # step and the rescore's score_nodes (a chunk of 1024 rows, one expansion of
 # R = 56 slots, or a row's 56 neighbors, each), the intra-wave and
-# centroid-scan calls, and an unaligned shape (M not a multiple of 16, K < 256)
+# centroid-scan calls, the lifecycle's PQ-sidecar compaction at 20k
+# (256-query waves: the in-source beam step, two expansions of R = 32; the
+# merged-space scores of a source row's 32 neighbors; each search's entry
+# score; the 1 x 20,000 centroid scan), and an unaligned shape (M not a
+# multiple of 16, K < 256)
 K5_SHAPES = {
     "serve": (4096, 56, 16, 256),
     "serve_fused_levels": (4096, 64, 16, 256),
@@ -843,6 +930,10 @@ K5_SHAPES = {
     "refine_search_rescore": (1024, 56, 16, 256),
     "baseline_config3_serve": (1024, 64, 24, 256),  # anisotropic PQ, m = 24 on d = 96, 1024-query waves, 64 slots
     "centroid_scan": (1, 1_000_000, 16, 256),
+    "compaction_beam_step": (256, 64, 16, 256),
+    "compaction_candidates": (256, 32, 16, 256),
+    "compaction_entry": (256, 1, 16, 256),
+    "compaction_centroid_scan": (1, 20_000, 16, 256),
     "unaligned": (13, 19, 5, 32),
 }
 
@@ -1400,6 +1491,277 @@ def _real_wave_check(wave: int):
         builder._wave_apply_packed = apply
 
 
+def _digest(graph) -> str:
+    """sha256 over every table of a graph (a checksum for "unchanged")."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in [*(t for layer in graph.layers for t in layer), *graph.level_node_ids, graph.deleted,
+              graph.entry_node, graph.num_nodes]:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sq4_plain(sq, vectors: torch.Tensor):
+    """An SQ4 first pass that reads code rows only (no fused tables), so it
+    serves any graph over ``vectors``."""
+    from jvector_tpu_torch.graph.score import SQ4ScoreProvider, sq4_aug_rows
+
+    codes = sq.encode(vectors)
+    w2, norm2 = sq.node_constants(codes)
+    empty = torch.zeros((1, 0), device=vectors.device)
+    return SQ4ScoreProvider(codes_packed=codes, node_w2=w2, node_norm2=norm2, fused_packed=empty.to(torch.uint8),
+                            fused_w2=empty, scale=sq.scale, offset=sq.offset, codes_aug=sq4_aug_rows(codes, w2))
+
+
+def _carried_codebooks(rows: np.ndarray, m: int = 16, k: int = 256, seed: int = LIFECYCLE_SEED) -> np.ndarray:
+    """``[m, k, d/m]`` PQ codebooks drawn from ``rows`` without training, as
+    ``experiments/torch_lifecycle_cpu.py`` draws them for the JAX package:
+    the centroids of subspace i are k distinct rows' i-th slices."""
+    rng = np.random.default_rng(seed)
+    s = rows.shape[1] // m
+    return np.stack([rows[rng.choice(len(rows), k, replace=False), i * s : (i + 1) * s] for i in range(m)])
+
+
+def _lifecycle_pq_compaction(dev: torch.device) -> dict:
+    """``compact_indexes(pq=...)`` at 20k: three uneven segments built by
+    the port; every graph score on codes (K5).  Run twice: with the sidecar
+    retrain of a base PQ (m = 16, K = 256) trained on the first segment
+    (the path's main run), and with ``retrain=False`` on codebooks drawn
+    alike by both packages (:func:`_carried_codebooks`).  Each run's K5
+    launches, by shape too, and recall@10 with exact rerank."""
+    from jvector_tpu_torch import convert
+    from jvector_tpu_torch.disk import CompactionSource, compact_indexes
+    from jvector_tpu_torch.graph import ExactScoreProvider, GraphConfig, build_graph, search
+    from jvector_tpu_torch.quantization import ProductQuantization
+    from jvector_tpu_torch.util.datasets import recall_at_k, synthetic_dataset
+
+    cfg = GraphConfig(max_degree=32, ef_construction=100)
+    n = LIFECYCLE_PQ_SPLITS[-1][1]
+    ds = synthetic_dataset(n=n, dim=128, n_queries=GT_QUERIES, k=TOP_K, n_clusters=64, seed=0, device=dev)
+    t0 = time.time()
+    sources = [CompactionSource(graph=build_graph(torch.as_tensor(ds.base[a:b], device=dev), "euclidean", cfg)[0],
+                                vectors=ds.base[a:b]) for a, b in LIFECYCLE_PQ_SPLITS]
+    base_pq = ProductQuantization.compute(ds.base[: LIFECYCLE_PQ_SPLITS[0][1]], m=16, clusters=256, device=dev)
+    carried_pq = convert.pq_from_numpy(_carried_codebooks(ds.base[: LIFECYCLE_PQ_SPLITS[0][1]]), None, 128,
+                                       device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    queries = torch.as_tensor(ds.queries, device=dev)
+
+    def run(pq, retrain: bool) -> dict:
+        reset_counts()
+        (merged, prov, mappers), secs = _timed(lambda: compact_indexes(sources, cfg, "euclidean", pq=pq,
+                                                                       retrain=retrain))
+        launches, shapes = read_counts(), read_k5_shapes()
+        new_of_old = np.concatenate(mappers)
+        merged_vecs = np.empty_like(ds.base)
+        merged_vecs[new_of_old] = ds.base
+        exact = ExactScoreProvider(vectors=torch.as_tensor(merged_vecs, device=dev))
+        gt = new_of_old[ds.ground_truth[:, :TOP_K]]
+        recall = {b: recall_at_k(_check_result(search(merged, prov, queries, top_k=TOP_K, beam_width=b, rerank_k=b,
+                                                      reranker=exact), GT_QUERIES, f"PQ compaction at beam {b}"),
+                                 gt, TOP_K) for b in (50, 100)}
+        return {"compact_seconds": secs, "recall": recall, "launches": launches, "k5_launches_by_shape": shapes}
+
+    retrained = run(base_pq, True)
+    carried = run(carried_pq, False)
+    return {"n": n, "splits": LIFECYCLE_PQ_SPLITS, "segment_build_seconds": build_s, **retrained,
+            "jax_recall_by_seed": JAX_PQ_COMPACTION_RECALL_20K, "carried": carried,
+            "jax_carried_recall": JAX_PQ_CARRIED_RECALL_20K}
+
+
+def _lifecycle(graph, exact, sq, base: torch.Tensor, queries: torch.Tensor, gt: np.ndarray, beams: list,
+               dev: torch.device) -> dict:
+    """The index lifecycle on the SQ4 path's graph (see LIFECYCLE_*): each
+    step's seconds and checks; fails after printing its line."""
+    import tempfile
+
+    from jvector_tpu_torch.disk import DeviceTierIndex, compact_on_disk, write_index
+    from jvector_tpu_torch.graph import GraphConfig, search
+    from jvector_tpu_torch.graph.mutation import add_nodes, mark_deleted, remove_deleted
+    from jvector_tpu_torch.graph.nndescent import nn_descent_build
+    from jvector_tpu_torch.quantization import ProductQuantization
+    from jvector_tpu_torch.util.datasets import recall_at_k, synthetic_dataset
+
+    t_phase = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GraphConfig(max_degree=32, ef_construction=100)
+    n = base.shape[0]
+    n_del = n // 10
+    deleted = np.sort(np.random.default_rng(LIFECYCLE_SEED).choice(n, n_del, replace=False))
+    live = np.ones(n, bool)
+    live[deleted] = False
+    q_gt = queries[:GT_QUERIES]
+    gt_live = _exact_topk(base, q_gt, TOP_K, torch.as_tensor(live, device=dev))
+    first = _sq4_plain(sq, exact.vectors)
+    fails, steps = [], {}
+
+    def run(g, prov, rerank, qs, beam):
+        return search(g, prov, qs, top_k=TOP_K, beam_width=beam, rerank_k=beam, reranker=rerank,
+                      repack_after=max(8, int(1.6 * beam)))
+
+    def recall(g, prov, rerank, truth, beam=API_BEAM, id_map=None):
+        ids = _check_result(run(g, prov, rerank, q_gt, beam), GT_QUERIES, f"lifecycle search at beam {beam}")
+        return recall_at_k(ids if id_map is None else id_map[ids], truth, TOP_K), ids
+
+    def step(name, fn):
+        reset_counts()
+        out, secs = _timed(fn)
+        steps[name] = {"seconds": secs, "launches": {k: v for k, v in read_counts().items() if v}}
+        return out
+
+    before = _digest(graph)
+    recall_full_before, _ = recall(graph, first, exact, gt)
+    recall_full_before_low, _ = recall(graph, first, exact, gt, LIFECYCLE_LOW_BEAM)
+
+    # 1. delete: tombstones only, the caller's graph untouched
+    tomb = step("delete", lambda: mark_deleted(graph, deleted))
+    recall_tomb, ids = recall(tomb, first, exact, gt_live)
+    recall_tomb_low, _ = recall(tomb, first, exact, gt_live, LIFECYCLE_LOW_BEAM)
+    hit = int(np.isin(ids, deleted).sum())
+    steps["delete"].update(deleted=n_del, deleted_in_results=hit, recall_live=recall_tomb,
+                           recall_live_low_beam=recall_tomb_low)
+    if hit:
+        fails.append(f"{hit} deleted ids in the results after mark_deleted")
+    recall_full_after, _ = recall(graph, first, exact, gt)  # the pre-delete graph still serves
+    steps["delete"].update(pre_delete_graph_recall=recall_full_after)
+    if _digest(graph) != before or graph.deleted.any() or recall_full_after < RECALL_FLOOR:
+        fails.append(f"mark_deleted changed the caller's graph (its recall@10 now {recall_full_after})")
+
+    # 2. splice
+    spliced = step("splice", lambda: remove_deleted(tomb, exact, cfg))
+    nbrs = spliced.base.neighbors[:n]
+    dead = torch.as_tensor(~live, device=dev)
+    live_dev = ~dead
+    dangling = int((dead[torch.clamp(nbrs, min=0).long()] & (nbrs >= 0)).sum())
+    # a splice that only dropped the edges into deleted nodes would leave
+    # each live row the tombstoned row's live edges; the 2-hop repair adds more
+    t_nbrs = tomb.base.neighbors[:n]
+    kept = (t_nbrs >= 0) & live_dev[torch.clamp(t_nbrs, min=0).long()]
+    drop_only_degree = float(kept[live_dev].sum(1).float().mean())
+    live_degree = float((nbrs >= 0)[live_dev].sum(1).float().mean())
+    entry_live = bool(live[int(spliced.entry_node)])
+    recall_splice, ids = recall(spliced, first, exact, gt_live)
+    recall_splice_low, _ = recall(spliced, first, exact, gt_live, LIFECYCLE_LOW_BEAM)
+    steps["splice"].update(dangling_edges=dangling, entry_live=entry_live, recall_live=recall_splice,
+                           recall_live_before_splice=recall_tomb, recall_live_low_beam=recall_splice_low,
+                           recall_live_low_beam_before_splice=recall_tomb_low, average_degree=spliced.average_degree(),
+                           live_degree=live_degree, live_degree_drop_only=drop_only_degree)
+    if dangling or not entry_live:
+        fails.append(f"splice: {dangling} edges into deleted nodes, entry live {entry_live}")
+    if live_degree <= drop_only_degree:
+        fails.append(f"splice: live rows keep {live_degree} edges on average, no more than the "
+                     f"{drop_only_degree} left by dropping the edges into deleted nodes")
+    if recall_splice < RECALL_FLOOR or abs(recall_splice - recall_tomb) > LIFECYCLE_SPLICE_SLACK:
+        fails.append(f"splice: recall@10 {recall_splice} (before the splice {recall_tomb})")
+    if recall_splice_low < recall_tomb_low - LIFECYCLE_SPLICE_SLACK:
+        fails.append(f"splice: recall@10 at beam {LIFECYCLE_LOW_BEAM} {recall_splice_low} (before the splice "
+                     f"{recall_tomb_low})")
+
+    # 3. insert the deleted vectors again as new ordinals
+    spliced_digest = _digest(spliced)
+    inserted, prov_ins = step("insert", lambda: add_nodes(spliced, exact, base[deleted], cfg))
+    orig_of = np.concatenate([np.arange(n), deleted])
+    first_ins = _sq4_plain(sq, prov_ins.vectors)
+    recall_ins, _ = recall(inserted, first_ins, prov_ins, gt, id_map=orig_of)
+    recall_ins_low, _ = recall(inserted, first_ins, prov_ins, gt, LIFECYCLE_LOW_BEAM, id_map=orig_of)
+    unchanged = _digest(spliced) == spliced_digest
+    steps["insert"].update(inserted=n_del, num_nodes=int(inserted.num_nodes), capacity=inserted.capacity,
+                           recall=recall_ins, recall_low_beam=recall_ins_low, spliced_graph_unchanged=unchanged)
+    if recall_ins < RECALL_FLOOR or not unchanged:
+        fails.append(f"insert: recall@10 {recall_ins}, spliced graph unchanged {unchanged}")
+    if recall_ins_low < recall_tomb_low - LIFECYCLE_SPLICE_SLACK:
+        fails.append(f"insert: recall@10 at beam {LIFECYCLE_LOW_BEAM} {recall_ins_low} (the tombstoned graph's "
+                     f"{recall_tomb_low})")
+    del first_ins, inserted, prov_ins
+
+    # 4. NN-descent over the same vectors
+    seg = base[deleted]
+    nnd, nnd_prov = step("nndescent", lambda: nn_descent_build(seg, "euclidean", cfg))
+    gt_seg = _exact_topk(seg, q_gt, TOP_K)
+    nnd_recall = {b: recall_at_k(_check_result(search(nnd, nnd_prov, q_gt, top_k=TOP_K, beam_width=b), GT_QUERIES,
+                                               "NN-descent search"), gt_seg, TOP_K) for b in (50, 100)}
+    steps["nndescent"].update(n=n_del, recall=nnd_recall, jax_recall=JAX_NNDESCENT_RECALL_20K,
+                              average_degree=nnd.average_degree())
+    if n_del == 20_000 and abs(nnd_recall[100] - JAX_NNDESCENT_RECALL_20K[100]) > PARITY_SLACK:
+        fails.append(f"NN-descent recall@10 at beam 100 {nnd_recall[100]} vs the JAX package's "
+                     f"{JAX_NNDESCENT_RECALL_20K[100]}")
+
+    with tempfile.TemporaryDirectory() as td:
+        # 5. the spliced graph (tombstones kept) and the segment compacted on disk
+        t0 = time.time()
+        write_index(f"{td}/spliced.jvtpu", spliced, features={"inline_vectors": {"vectors": base}}, renumber=False)
+        write_index(f"{td}/nnd.jvtpu", nnd, features={"inline_vectors": {"vectors": seg}})
+        save_s = time.time() - t0
+        del nnd, nnd_prov
+        (mappers, stats) = step("compact_on_disk", lambda: compact_on_disk(
+            [f"{td}/spliced.jvtpu", f"{td}/nnd.jvtpu"], f"{td}/merged.jvtpu", cfg, wave=LIFECYCLE_WAVE,
+            device_budget_bytes=LIFECYCLE_BUDGET, device=dev))
+        new_of_old = np.empty(n, np.int32)
+        new_of_old[live] = mappers[0][:n][live]
+        new_of_old[deleted] = mappers[1]
+        steps["compact_on_disk"].update(save_seconds=save_s, total=stats["total"], wave=LIFECYCLE_WAVE,
+                                        budget_bytes=LIFECYCLE_BUDGET, peak_device_bytes=stats["peak_device_bytes"],
+                                        allocated_peak_bytes=stats["allocated_peak_bytes"])
+        if stats["total"] != n or not np.array_equal(np.sort(new_of_old), np.arange(n)):
+            fails.append(f"compact_on_disk: {stats['total']} nodes, not the {n} of the corpus")
+
+        # 6. the device tier serves the merged file
+        tier = step("device_tier_load", lambda: DeviceTierIndex.load(f"{td}/merged.jvtpu", device=dev))
+    gt_merged = new_of_old[gt]
+
+    def tier_run(qs, beam):
+        return tier.search(qs, top_k=TOP_K, beam_width=beam, rerank_k=beam, repack_after=max(8, int(1.6 * beam)))
+
+    tier_recall = {b: recall_at_k(_check_result(tier_run(q_gt, b), GT_QUERIES, "device tier"), gt_merged, TOP_K)
+                   for b in beams}
+    steps["device_tier"] = {"recall": tier_recall, "qps_100": _qps(lambda q: tier_run(q, API_BEAM), queries),
+                            "hbm_bytes": tier.hbm_bytes(),
+                            "phase_max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if tier_recall[API_BEAM] < RECALL_FLOOR:
+        fails.append(f"device tier: recall@10 at beam 100 {tier_recall[API_BEAM]} < {RECALL_FLOOR}")
+    del tier, spliced, tomb, first
+    torch.cuda.empty_cache()
+
+    # 7. PQ-sidecar compaction at 20k (K5 on the path)
+    t0 = time.time()
+    pqc = _lifecycle_pq_compaction(dev)
+    steps["pq_compaction"] = {"seconds": time.time() - t0, **pqc}
+    if pqc["launches"]["adc_score_kernel"] == 0 or pqc["carried"]["launches"]["adc_score_kernel"] == 0:
+        fails.append("a PQ-sidecar compaction launched no K5")
+    if n == EARLIER_N:
+        got, want = pqc["carried"]["recall"][100], JAX_PQ_CARRIED_RECALL_20K[100]
+        if abs(got - want) > LIFECYCLE_CARRIED_SLACK:
+            fails.append(f"PQ compaction on carried codebooks: recall@10 at beam 100 {got} vs the JAX "
+                         f"package's {want}")
+        floor = JAX_PQ_COMPACTION_RECALL_20K["min"][100] - PARITY_SLACK
+        if pqc["recall"][100] < floor:
+            fails.append(f"retrained PQ compaction: recall@10 at beam 100 {pqc['recall'][100]} < {floor} (the "
+                         f"JAX package's lowest of eight retrain seeds less {PARITY_SLACK})")
+
+    # 8. PQ training is a function of its seed on the card
+    t0 = time.time()
+    det = {}
+    for name, dim, m, thr in (("pq_m16", 128, 16, -1.0), ("config3_anisotropic_pq", 96, 24, 0.2)):
+        data = torch.as_tensor(synthetic_dataset(n=LIFECYCLE_DETERMINISM_ROWS, dim=dim, n_queries=1, k=1,
+                                                 n_clusters=262, seed=0, device=dev).base, device=dev)
+        books = [ProductQuantization.compute(data, m=m, clusters=256, globally_center=False,
+                                             anisotropic_threshold=thr).codebooks for _ in range(2)]
+        det[name] = {"bit_equal": bool(torch.equal(*books)), "max_abs_diff": float((books[0] - books[1]).abs().max())}
+        if not det[name]["bit_equal"]:
+            fails.append(f"PQ training ({name}) differs between two runs from one seed")
+    steps["determinism"] = {"seconds": time.time() - t0, "rows": LIFECYCLE_DETERMINISM_ROWS, **det}
+
+    result = {"phase": "lifecycle", "n": n, "seconds": time.time() - t_phase, "steps": steps,
+              "recall_before_delete": recall_full_before, "recall_before_delete_low_beam": recall_full_before_low,
+              "low_beam": LIFECYCLE_LOW_BEAM}
+    emit(result)
+    if fails:
+        raise SystemExit(f"lifecycle: {fails}")
+    return result
+
+
 def phase_sq4_path(n: int, dev: torch.device) -> dict:
     from jvector_tpu_torch.graph import GraphConfig, build_graph, search
     from jvector_tpu_torch.graph.builder import _shuffled_wave_starts
@@ -1487,6 +1849,9 @@ def phase_sq4_path(n: int, dev: torch.device) -> dict:
     if lut16["launches"]["adc16_score_kernel"] == 0:
         raise SystemExit("the LUT16 serve launched no K6")
     result["lut16"] = lut16
+
+    # the index lifecycle on the same graph, corpus and ground truth
+    result["lifecycle"] = _lifecycle(graph, exact, sq, base, queries, gt, sorted({100, chosen or BEAMS[-1]}), dev)
     return result
 
 
@@ -1516,13 +1881,19 @@ def phase_lut16_parity(dev: torch.device) -> dict:
 
 def phase_micro(dev: torch.device) -> dict:
     """``jvector_tpu_torch.bench.micro.run_micro`` at its defaults, with the
-    launches over its rows."""
-    from jvector_tpu_torch.bench.micro import run_micro
+    launches over its rows, then its compaction row
+    (``run_compact_micro`` at its defaults: two 25k SQ4 segments, d = 64)."""
+    from jvector_tpu_torch.bench.micro import run_compact_micro, run_micro
 
     reset_counts()
     t0 = time.time()
     rows = run_micro(device=dev)
     result = {"phase": "micro", "seconds": time.time() - t0, "rows": rows, "launches": read_counts()}
+    reset_counts()
+    t0 = time.time()
+    result["rows"] += run_compact_micro(device=dev)
+    result["compact_seconds"] = time.time() - t0
+    result["compact_launches"] = read_counts()
     emit(result)
     for name in ("adc_score_kernel", "adc16_score_kernel"):
         if result["launches"][name] == 0:
@@ -2336,7 +2707,8 @@ def main() -> None:
                  "scatter_rows3_inplace": ("mips_96d_build", "baseline_c3_build"), "scatter_rows_inplace": (),
                  "scatter_slots_inplace": (),
                  "adc_score_kernel": ("default_config_build", "default_config_serve", "default_config_refine",
-                                      "default_config_rescore", "baseline_c3_serve_a", "baseline_c3_serve_b"),
+                                      "default_config_rescore", "baseline_c3_serve_a", "baseline_c3_serve_b",
+                                      "lifecycle_pq_compaction", "lifecycle_pq_compaction_carried"),
                  "adc16_score_kernel": ("lut16_serve", "micro")}
     c3, c4 = base_cfg["config3"], base_cfg["config4"]
     c3_20k, c4_20k = base_cfg["parity_20k"]["config3"], base_cfg["parity_20k"]["config4"]
@@ -2371,7 +2743,11 @@ def main() -> None:
                    "baseline_parity_20k": (c3_20k["build_launches"][name] + c4_20k["build_launches"][name]
                                            + serves(c3_20k, *c3_20k["serves"])[name]
                                            + serves(c4_20k, *c4_20k["serves"])[name]),
-                   "baseline_grid": sum(r["launches"][name] for r in base_cfg["grid"]["runs"])}
+                   "baseline_grid": sum(r["launches"][name] for r in base_cfg["grid"]["runs"]),
+                   "lifecycle_pq_compaction": sq4["lifecycle"]["steps"]["pq_compaction"]["launches"][name],
+                   "lifecycle_pq_compaction_carried":
+                       sq4["lifecycle"]["steps"]["pq_compaction"]["carried"]["launches"][name],
+                   "micro_compact": micro["compact_launches"][name]}
         k["launches"] = sum(by_path[path] for path in main_path[name])
         k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,8 +7,10 @@ same data (the default configuration's PQ, m = 16 on 128-d, and BASELINE
 config 3's anisotropic PQ, m = 24 on 96-d; 131,072 rows of
 ``synthetic_dataset``), and runs K5 twice on the same tables and codes.
 One JSON line each: whether the two results are equal bit for bit and
-their largest difference.  The k-means updates sum with ``scatter_add_``
-/ ``index_add_``, whose float32 atomics add in no fixed order on a GPU.
+their largest difference.  The k-means updates sum each cluster's rows in
+a fixed order (``quantization.kmeans._segment_sum``); with the float32
+atomics of ``scatter_add_`` / ``index_add_`` they used before, two
+trainings came out 0.0019 (m = 16) and 0.0048 (config 3) apart.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 ``jvector_tpu/bench/micro.py``; reference: benchmarks-jmh).
 
     python -m jvector_tpu_torch.bench.micro [--n 100000 --dim 128 --q 1024 --reps 5]
-                                            [--out rows.jsonl] [--device cuda]
+                                            [--out rows.jsonl] [--device cuda] [--compact]
 
 Times each primitive on one device and prints one JSON row each, with the
 run's provenance (:func:`jvector_tpu_torch.bench.diagnostics.run_metadata`),
@@ -11,20 +11,23 @@ exact block scoring, PQ train + encode, 8-bit PQ ADC (K5), LUT16 ADC (K6),
 SQ4 encode, the graph build (waves of 256), SQ4 fused edge scoring and a
 two-pass search wave (SQ4 first pass, exact rerank at beam 40).  Timed
 calls end in a device synchronize.  ``--device cpu`` runs the kernels'
-plain twins (for tests, not for numbers).  The streamed-compaction row
-(``--compact``) needs compaction, which is not ported yet (ROADMAP.md).
+plain twins (for tests, not for numbers).  ``--compact`` adds the
+streamed-compaction row (:func:`run_compact_micro`).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from jvector_tpu_torch.bench.diagnostics import run_metadata
+from jvector_tpu_torch.disk.compaction import compact_on_disk
+from jvector_tpu_torch.disk.ltm import build_on_disk_ltm
 from jvector_tpu_torch.graph import GraphConfig, LUT16ScoreProvider, build_graph, search
 from jvector_tpu_torch.ops.adc16 import pack_nibbles
 from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel
@@ -119,6 +122,41 @@ def run_micro(n: int = 100_000, dim: int = 128, q: int = 1024, reps: int = 5,
     return rows
 
 
+def run_compact_micro(n: int = 50_000, dim: int = 64, segments: int = 2,
+                      device: torch.device | str = "cuda") -> list[dict]:
+    """The streamed N:1 compaction rate (reference: benchmarks-jmh
+    ``CompactorBenchmark`` COMPACT mode, ``docs/compaction.md:120-199``):
+    ``segments`` SQ4 segments stream-built to files, then
+    ``compact_on_disk`` timed end to end (merge searches, prune, streamed
+    row writes, save).  One row: merged nodes/s and the ledger's device
+    peak."""
+    dev = resolve_device(device)
+    meta = run_metadata({"n": n, "dim": dim, "segments": segments}, dev)
+    ds = synthetic_dataset(n=n, dim=dim, n_queries=8, k=10, n_clusters=max(64, n // 500), seed=3, device=dev)
+    cfg = GraphConfig(max_degree=32, ef_construction=100, wave_size=256)
+    per = n // segments
+    with tempfile.TemporaryDirectory() as td:
+        paths = []
+        for i in range(segments):
+            p = f"{td}/seg{i}.jvtpu"
+            build_on_disk_ltm(p, ds.base[i * per : (i + 1) * per], n=per, dim=dim, config=cfg,
+                              compression="sq4", device=dev)
+            paths.append(p)
+        _sync(dev)
+        t0 = time.time()
+        _, stats = compact_on_disk(paths, f"{td}/merged.jvtpu", cfg, device=dev)
+        _sync(dev)
+        dt = time.time() - t0
+    return [{
+        "benchmark": f"compact_{segments}x{per}",
+        "seconds": round(dt, 6),
+        "value": round(stats["total"] / dt, 1),
+        "unit": "merged nodes/s",
+        "peak_device_mb": round(stats["peak_device_bytes"] / 1e6, 1),
+        **{k: meta[k] for k in ("git_sha", "device", "timestamp")},
+    }]
+
+
 def main(argv: list[str] | None = None) -> list[dict]:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None, help="append the rows to this JSONL file")
@@ -127,11 +165,11 @@ def main(argv: list[str] | None = None) -> list[dict]:
     p.add_argument("--q", type=int, default=1024)
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (the kernels' plain twins)")
-    p.add_argument("--compact", action="store_true", help="the streamed-compaction row (not ported)")
+    p.add_argument("--compact", action="store_true", help="also the streamed-compaction row")
     args = p.parse_args(argv)
-    if args.compact:
-        raise NotImplementedError("the compaction benchmark needs disk/compaction.py, not ported yet (ROADMAP.md)")
     rows = run_micro(n=args.n, dim=args.dim, q=args.q, reps=args.reps, device=args.device)
+    if args.compact:
+        rows += run_compact_micro(device=args.device)
     out = "\n".join(json.dumps(r) for r in rows)
     print(out)
     if args.out:

@@ -1,12 +1,15 @@
 """Persistence and the larger-than-memory path (PyTorch counterpart of
 ``jvector_tpu.disk``): the index container shared with the JAX package
 (``format``), the stream build (``ltm``), the host rerank tier
-(``host_tier``) and bounded-memory host serving (``host_graph``).
+(``host_tier``), bounded-memory host serving (``host_graph``), the
+device-resident serving tier (``device_tier``) and N:1 compaction
+(``compaction``).
 
-Not ported yet: ``device_tier`` and compaction (ROADMAP queue 1 item 6),
-``ShardedHostIndex`` (item 7).
+Not ported yet: ``ShardedHostIndex`` (ROADMAP queue 1 item 7).
 """
 
+from jvector_tpu_torch.disk.compaction import CompactionSource, compact_indexes, compact_on_disk
+from jvector_tpu_torch.disk.device_tier import DeviceTierIndex
 from jvector_tpu_torch.disk.format import (
     FeatureId,
     IndexFileReader,
@@ -20,12 +23,16 @@ from jvector_tpu_torch.disk.host_tier import HostVectorStore, search_with_host_r
 from jvector_tpu_torch.disk.ltm import build_on_disk_ltm
 
 __all__ = [
+    "DeviceTierIndex",
     "FeatureId",
     "IndexFileReader",
     "IndexFileWriter",
     "OnDiskIndex",
     "load_index",
     "write_index",
+    "CompactionSource",
+    "compact_indexes",
+    "compact_on_disk",
     "HostGraphIndex",
     "ShardedHostIndex",
     "write_sq4_index",

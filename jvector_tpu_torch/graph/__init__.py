@@ -1,9 +1,10 @@
 """Graph core: graph data model, score providers (exact, SQ4, PQ-ADC,
 LUT16, BQ), robust prune, query-wave beam search (filtered, threshold and
 resumable), the wave builders and the hierarchy (PyTorch counterpart of
-``jvector_tpu.graph``).  ``builder.refine_graph``, ``builder.rescore_graph``
-and ``multi.multi_search`` are imported from their modules, as in the JAX
-package."""
+``jvector_tpu.graph``).  ``builder.refine_graph``, ``builder.rescore_graph``,
+``multi.multi_search``, the ``mutation`` functions (``mark_deleted``,
+``remove_deleted``, ``add_nodes``) and ``nndescent.nn_descent_build`` are
+imported from their modules, as in the JAX package."""
 
 from jvector_tpu_torch.graph.builder import GraphIndexBuilder, build_graph
 from jvector_tpu_torch.graph.index import GraphConfig, GraphIndex

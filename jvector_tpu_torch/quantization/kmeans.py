@@ -66,16 +66,27 @@ def kmeans(data: torch.Tensor, k: int, generator: torch.Generator, iters: int = 
     return lloyd(data, kmeans_pp_init(data, k, generator), iters)
 
 
+def _segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``out[s] = sum of values[i] where seg[i] == s``, each segment's rows
+    added one after another in row order: a stable sort groups the rows,
+    ``torch.segment_reduce`` sums each group (one sequential sum per output
+    element on the card, no atomics).  Empty segments give 0."""
+    order = torch.sort(seg, stable=True).indices
+    lengths = torch.bincount(seg, minlength=num_segments)
+    return torch.segment_reduce(values[order], "sum", lengths=lengths)
+
+
 def lloyd(data: torch.Tensor, centroids: torch.Tensor, iters: int) -> torch.Tensor:
     """``iters`` plain Lloyd rounds from ``centroids [B, k, d]`` (also
     ``ProductQuantization.refine``'s)."""
     b, n, d = data.shape
     k = centroids.shape[1]
-    ones = torch.ones((b, n), dtype=data.dtype, device=data.device)
+    seg_base = (torch.arange(b, device=data.device) * k)[:, None]
+    flat = data.reshape(b * n, d)
     for _ in range(iters):
-        assign = assign_clusters(data, centroids)  # [B, n]
-        sums = torch.zeros_like(centroids).scatter_add_(1, assign[:, :, None].expand(b, n, d), data)
-        counts = torch.zeros((b, k), dtype=data.dtype, device=data.device).scatter_add_(1, assign, ones)
+        seg = (assign_clusters(data, centroids) + seg_base).reshape(-1)  # [B*n]
+        sums = _segment_sum(flat, seg, b * k).reshape(b, k, d)
+        counts = torch.bincount(seg, minlength=b * k).to(data.dtype).reshape(b, k)
         new = sums / torch.clamp(counts, min=1.0)[:, :, None]
         centroids = torch.where(counts[:, :, None] > 0, new, centroids)
     return centroids
@@ -123,8 +134,8 @@ def lloyd_anisotropic(data: torch.Tensor, centroids: torch.Tensor, eta: float, i
     Update (``KMeansPlusPlusClusterer.java:378-431``, AVQ appendix 7.5):
     each centroid solves ``(sum_i (eta - 1) x_i x_i^T / ||x_i||^2 + count I
     + 1e-6 I) c = eta * sum_i x_i`` over its points.  The per-cluster outer
-    products are summed with ``index_add_``, a block of rows at a time; a
-    cluster with no points keeps its centroid.  ``eta`` is rounded to
+    products are summed with :func:`_segment_sum`, a block of rows at a
+    time, the blocks in order; a cluster with no points keeps its centroid.  ``eta`` is rounded to
     float32 first, as the JAX package's traced scalar is, so ``eta - 1``
     rounds alike."""
     b, n, d = data.shape
@@ -141,9 +152,9 @@ def lloyd_anisotropic(data: torch.Tensor, centroids: torch.Tensor, eta: float, i
         outer = torch.zeros((b * k, d, d), dtype=data.dtype, device=dev)
         for i in range(0, n, rows):
             prod = xs[:, i : i + rows, :, None] * data[:, i : i + rows, None, :]
-            outer.index_add_(0, seg[:, i : i + rows].reshape(-1), prod.reshape(-1, d, d))
+            outer += _segment_sum(prod.reshape(-1, d, d), seg[:, i : i + rows].reshape(-1), b * k)
         seg = seg.reshape(-1)
-        sums = torch.zeros((b * k, d), dtype=data.dtype, device=dev).index_add_(0, seg, data.reshape(b * n, d))
+        sums = _segment_sum(data.reshape(b * n, d), seg, b * k)
         counts = torch.bincount(seg, minlength=b * k).to(data.dtype)
         a = outer + counts[:, None, None] * eye
         new = torch.linalg.solve(a + 1e-6 * eye, (eta * sums)[..., None])[..., 0].reshape(b, k, d)

@@ -652,3 +652,20 @@ def test_scatter_rejects_non_contiguous_before_launch(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tsr.scatter_rows3_inplace(table[::2], idx, torch.ones((4, 2, 128), dtype=torch.uint8, device=cuda_device))
     assert tsr.scatter_rows3_inplace.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [-1.0, 0.2], ids=["plain_pq", "anisotropic_pq"])
+def test_pq_training_on_card_is_a_function_of_its_seed(cuda_device, threshold):
+    """``ProductQuantization.compute`` twice from one seed on the card gives
+    bit-equal codebooks: the k-means sums run in a fixed order
+    (``quantization.kmeans._segment_sum``), with no float atomics.  Plain PQ
+    at m = 16 on 128-d, and BASELINE config 3's anisotropic PQ (m = 24 on
+    96-d, T = 0.2), on 32,768 rows (``chip_smoke.py`` holds 131,072)."""
+    from jvector_tpu_torch.quantization import ProductQuantization
+
+    dim, m = (128, 16) if threshold < 0 else (96, 24)
+    data = torch.as_tensor(np.random.default_rng(11).normal(size=(32_768, dim)).astype(np.float32), device=cuda_device)
+    books = [ProductQuantization.compute(data, m=m, clusters=256, globally_center=False,
+                                         anisotropic_threshold=threshold).codebooks for _ in range(2)]
+    assert torch.equal(books[0], books[1])

@@ -53,6 +53,17 @@ def test_run_metadata_names_device_and_no_jax():
     assert "config_hash" not in diagnostics.run_metadata(device="cpu")
 
 
-def test_compact_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        micro.main(["--compact", "--device", "cpu"])
+def test_compact_not_ported(monkeypatch):
+    """Named when ``--compact`` raised ``NotImplementedError``; the row is
+    ported now: ``--compact`` appends the JAX ``run_compact_micro``'s row
+    (two SQ4 segments stream-built, then ``compact_on_disk``).  Here the
+    CLI runs on the CPU with the compaction cut to n = 1024 and the other
+    rows (``test_run_micro_rows_match_jax_names``) left out."""
+    compact = micro.run_compact_micro
+    monkeypatch.setattr(micro, "run_compact_micro", lambda **kw: compact(n=1024, **kw))
+    monkeypatch.setattr(micro, "run_micro", lambda **kw: [])
+    rows = micro.main(["--compact", "--device", "cpu"])
+    assert [r["benchmark"] for r in rows] == ["compact_2x512"]
+    row = rows[0]
+    assert row["unit"] == "merged nodes/s" and row["value"] > 0 and row["peak_device_mb"] > 0
+    assert row["device"] == "cpu"

@@ -55,7 +55,8 @@ def test_import_without_jax():
         "import sys, jvector_tpu_torch, jvector_tpu_torch.convert, jvector_tpu_torch.disk.ltm, "
         "jvector_tpu_torch.disk.host_graph, jvector_tpu_torch.util.native, jvector_tpu_torch.bench.headline, "
         "jvector_tpu_torch.ops.adc16, jvector_tpu_torch.ops.kernels.adc16, jvector_tpu_torch.bench.micro, "
-        "jvector_tpu_torch.bench.diagnostics; "
+        "jvector_tpu_torch.bench.diagnostics, jvector_tpu_torch.graph.mutation, jvector_tpu_torch.graph.nndescent, "
+        "jvector_tpu_torch.disk.device_tier, jvector_tpu_torch.disk.compaction; "
         "print('jax' in sys.modules, any(m.split('.')[0] == 'jvector_tpu' for m in sys.modules))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True)
