@@ -229,6 +229,34 @@ Phases, each printing one JSON line:
    non-finite scores.  Phase 3 checks K2 at config 4's table
    (212,992 x 43,008 bytes) and K5 at config 3's M = 24 as well.
 
+12. sharding (``"phase": "sharding"``): a mesh of all visible cards if
+   there are at least four, else ``["cuda:0"] * 4`` (four shards on the
+   one card this script uses); 100,000 x 128 of the SQ4 path's corpus
+   family (``synthetic_dataset(100_000, 128, n_queries=4096, k=10,
+   n_clusters=200, seed=0)``, ground truth over the first 1024 queries)
+   built by ``sharded_build`` at ``GraphConfig(max_degree=32,
+   ef_construction=100)``: the packed regime, four shards of 25,000, K1
+   and K2 once per shard per wave (4 x 49 = 196, or it fails,
+   ``launches_by_path["sharding"]``); ``sharded_brute_force`` over the
+   mesh must give ``_exact_topk``'s top-10 as a set (an id may differ
+   only at a float tie with the 10th); ``sharded_graph_search`` at beams
+   20 / 50 / 100 (``rerank_k`` = beam): recall@10 >= 0.95 at beam 100 and
+   within 0.02 of the JAX package's figure on the same corpus and a
+   4-device CPU mesh (``experiments/torch_sharding_cpu.py``), QPS at beam
+   100 over 65,536 queries in 4096-query waves, one ``floor_slack`` = 0.0
+   run printed beside the JAX figure; ``sharded_search`` of shard 0's
+   graph over the mesh must equal a one-device ``search``;
+   ``save_sharded`` -> ``load_sharded`` must keep the ids, and shard 0's
+   file served by ``HostGraphIndex`` must reach 0.90 against shard 0's
+   exact top-10; ``sharded_build_on_disk`` of 2 x 20,000 rows (the first
+   40,000) served by ``ShardedHostIndex`` at beam 64 (>= 0.90), a 10%
+   filter (no id outside the mask), a re-run that must leave the shard
+   files' sha256 and the loader untouched, ``load_sharded`` onto a
+   2-entry mesh (>= 0.90 at beam 64); last ``entry.dryrun_multichip`` on
+   the mesh's devices.  The line holds each step's seconds
+   (``StepTimer``), the launches by step and each card's peak memory
+   (``device_memory_stats``).
+
 Phases run in this order, phase 10's parts inside phases 5, 6 and 7.  Kernel
 launch counts are read per path: set to 0 just before a path, read just
 after; K5's also by shape (``"QxCxM"``: ``k5_launches_by_shape``) on the
@@ -245,12 +273,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 # one card, set before CUDA starts: the first the caller lists, else card 0
 os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -388,6 +419,27 @@ JAX_PQ_CARRIED_RECALL_20K = {50: 0.5810546875, 100: 0.7779296875}
 README_TPU_V5E = {"c3_aniso_sq4": {"beam": 30, "recall": 0.9535, "qps": 34_814},
                   "c3_aniso_pq": {"beam": 120, "recall": 0.9625, "qps": 2_489},
                   "c4_bq_nvq": {"beam": 60, "recall": 0.9549, "qps": 23_412}}
+# the sharding phase: SHARD_N vectors of the SQ4 path's corpus family
+# (synthetic_dataset(SHARD_N, 128, n_queries=SHARD_QUERIES, k=10,
+# n_clusters=max(64, SHARD_N // 500), seed=0)) built over a mesh of
+# SHARD_COUNT shards, served at SHARD_BEAMS with rerank_k = beam, recall@10
+# over the first GT_QUERIES queries, held at beam 100 to RECALL_FLOOR and
+# within SHARD_PARITY_SLACK of the JAX package's recall on the same corpus
+# and a 4-device virtual CPU mesh (experiments/torch_sharding_cpu.py, which
+# also gives the floor_slack = SHARD_FLOOR_SLACK run's figure, printed
+# unchecked); then SHARD_LTM_SHARDS larger-than-memory shards of
+# SHARD_LTM_N // SHARD_LTM_SHARDS rows of the same corpus, served from the
+# host at HOST_BEAM (HOST_RECALL_FLOOR) and filtered at SHARD_FILTER
+SHARD_N = 100_000
+SHARD_COUNT = 4
+SHARD_QUERIES = 4096
+SHARD_BEAMS = (20, 50, 100)
+SHARD_PARITY_SLACK = 0.02
+SHARD_FLOOR_SLACK = 0.0
+SHARD_LTM_N, SHARD_LTM_SHARDS = 40_000, 2
+SHARD_FILTER = 0.10
+JAX_SHARDED_RECALL_100K = {20: 1.0, 50: 1.0, 100: 1.0}
+JAX_SHARDED_FLOOR_RECALL_100K = 0.7826171875  # at beam 100, floor_slack 0.0
 
 
 def emit(obj: dict) -> None:
@@ -2670,6 +2722,218 @@ def phase_baseline_configs(n: int, dev: torch.device) -> dict:
     return lines
 
 
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for blk in iter(lambda: f.read(1 << 24), b""):
+            h.update(blk)
+    return h.hexdigest()
+
+
+def _brute_same_sets(brute: np.ndarray, base: torch.Tensor, queries: torch.Tensor, k: int) -> int:
+    """Queries whose sharded brute-force top-k differs as a set from
+    ``_exact_topk``'s, after ties: a differing id must lie within 1e-5 of the
+    k-th distance (float64), or the script fails.  Returns the tie count."""
+    want = _exact_topk(base, queries, k)
+    ties = 0
+    for qi in np.flatnonzero([set(a.tolist()) != set(b.tolist()) for a, b in zip(brute, want)]):
+        q = queries[qi].double()
+        d = lambda ids: ((base[torch.as_tensor(ids, device=base.device)].double() - q) ** 2).sum(1)  # noqa: E731
+        kth = float(d(want[qi]).max())
+        if float(d(brute[qi]).max()) > kth * (1 + 1e-5) + 1e-9:
+            raise SystemExit(f"sharded brute force differs from the exact top-{k} at query {qi}")
+        ties += 1
+    return ties
+
+
+def phase_sharding(dev: torch.device) -> dict:
+    """Phase 12: the sharded in-memory build over a mesh (K1 and K2 once
+    per shard per wave), its serve, the query-parallel serve, sharded
+    persistence, the sharded on-disk build served from the host, and the
+    multi-device dry run."""
+    from jvector_tpu_torch import entry
+    from jvector_tpu_torch.bench.diagnostics import StepTimer, device_memory_stats
+    from jvector_tpu_torch.disk import HostGraphIndex, ShardedHostIndex
+    from jvector_tpu_torch.graph import GraphConfig, search
+    from jvector_tpu_torch.graph.builder import _shuffled_wave_starts
+    from jvector_tpu_torch.parallel import (
+        load_sharded,
+        make_mesh,
+        save_sharded,
+        sharded_brute_force,
+        sharded_build,
+        sharded_build_on_disk,
+        sharded_graph_search,
+        sharded_search,
+    )
+    from jvector_tpu_torch.util.datasets import recall_at_k, synthetic_dataset
+
+    visible = torch.cuda.device_count()
+    mesh = make_mesh(devices=[f"cuda:{i}" for i in range(visible)] if visible >= 4 else [dev] * SHARD_COUNT,
+                     axis_name="shard")
+    mesh_devices = [str(d) for d in mesh.devices]
+    print(f"sharding mesh: {mesh_devices}", flush=True)
+    cards = sorted(set(mesh.devices), key=str)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    timer = StepTimer(dev)
+    fails, out = [], {"phase": "sharding", "n": SHARD_N, "dim": 128, "mesh": mesh_devices}
+    with timer.section("data"):
+        ds = synthetic_dataset(n=SHARD_N, dim=128, n_queries=SHARD_QUERIES, k=TOP_K,
+                               n_clusters=max(64, SHARD_N // 500), seed=0, device=dev)
+        base = torch.as_tensor(ds.base, device=dev)
+        queries = torch.as_tensor(ds.queries, device=dev)
+    q_gt, gt = queries[:GT_QUERIES], ds.ground_truth[:GT_QUERIES]
+    cfg = GraphConfig(max_degree=32, ef_construction=100)
+
+    reset_counts()
+    with timer.section("build"):
+        idx = sharded_build(ds.base, mesh, cfg)
+    launches = {"build": read_counts()}
+    n_waves = len(_shuffled_wave_starts(idx.n_local, cfg.wave_size))
+    out.update(n_local=idx.n_local, n_waves_per_shard=n_waves,
+               packed=idx.search_providers is not None and idx.search_providers[0].fused_w2.dtype == torch.int32,
+               average_degree=[g.average_degree() for g in idx.graphs])
+    for name in ("packed_adj_update_inplace", "fused_update_inplace"):
+        if launches["build"][name] != mesh.size * n_waves:
+            fails.append(f"{name} launched {launches['build'][name]} times, not {mesh.size} shards x {n_waves} waves")
+    if not out["packed"]:
+        fails.append("the sharded build did not take the packed regime")
+
+    # the exact top-10 by node-sharded brute force
+    with timer.section("brute_force"):
+        _, bids = sharded_brute_force(q_gt, base, mesh, k=TOP_K)
+    out["brute_force_ties"] = _brute_same_sets(bids.cpu().numpy(), base, q_gt, TOP_K)
+
+    # the sharded serve: per-shard beam + exact rerank + merge
+    reset_counts()
+    recall = {}
+    for beam in SHARD_BEAMS:
+        with timer.section(f"serve_beam_{beam}"):
+            gids, scores = sharded_graph_search(idx, q_gt, mesh, top_k=TOP_K, beam_width=beam, rerank_k=beam)
+        ids = _check_result(SimpleNamespace(ids=gids, scores=scores), GT_QUERIES, f"sharded serve at beam {beam}")
+        recall[str(beam)] = recall_at_k(ids, gt, TOP_K)
+    launches["serve"] = read_counts()
+    before_save = gids.cpu().numpy()
+    floor_ids, _ = sharded_graph_search(idx, q_gt, mesh, top_k=TOP_K, beam_width=100, rerank_k=100,
+                                        floor_slack=SHARD_FLOOR_SLACK)
+    waves = [queries[i : i + WAVE] for i in range(0, SHARD_QUERIES, WAVE)]
+    timed = waves * max(1, -(-MIN_TIMED_QUERIES // SHARD_QUERIES))
+    sharded_graph_search(idx, waves[0], mesh, top_k=TOP_K, beam_width=100, rerank_k=100)  # warm-up
+    with timer.section("qps_beam_100"):
+        for wv in timed:
+            sharded_graph_search(idx, wv, mesh, top_k=TOP_K, beam_width=100, rerank_k=100)
+    out.update(recall=recall, jax_recall=JAX_SHARDED_RECALL_100K,
+               qps_beam_100=len(timed) * WAVE / timer.sections["qps_beam_100"], timed_queries=len(timed) * WAVE,
+               floor_slack={"slack": SHARD_FLOOR_SLACK, "recall_beam_100": recall_at_k(floor_ids.cpu().numpy(), gt,
+                                                                                       TOP_K),
+                            "jax_recall_beam_100": JAX_SHARDED_FLOOR_RECALL_100K})
+    if recall["100"] < RECALL_FLOOR:
+        fails.append(f"sharded recall@10 at beam 100 is {recall['100']} < {RECALL_FLOOR}")
+    if abs(recall["100"] - JAX_SHARDED_RECALL_100K[100]) > SHARD_PARITY_SLACK:
+        fails.append(f"sharded recall@10 at beam 100 is {recall['100']}, the JAX package's "
+                     f"{JAX_SHARDED_RECALL_100K[100]} (slack {SHARD_PARITY_SLACK})")
+
+    # the query-parallel serve of one shard's graph equals a one-device search
+    g0, sp0, ep0 = idx.graphs[0], idx.search_providers[0], idx.providers[0]
+    kw = dict(top_k=TOP_K, beam_width=100, rerank_k=100, reranker=ep0)
+    with timer.section("data_parallel_serve"):
+        dp = sharded_search(g0, sp0, queries, mesh, **kw)
+    one = search(g0, sp0, queries, **kw)
+    out["data_parallel_equal"] = bool(torch.equal(dp.ids.to(dev), one.ids))
+    if not out["data_parallel_equal"]:
+        fails.append("sharded_search ids differ from the one-device search")
+
+    with tempfile.TemporaryDirectory() as td:
+        # persistence: save -> load -> the same ids; one shard file served alone
+        with timer.section("save"):
+            save_sharded(idx, td)
+        out["saved_bytes"] = sum(os.path.getsize(os.path.join(td, f)) for f in os.listdir(td))
+        with timer.section("load"):
+            idx2 = load_sharded(td, mesh)
+        after, _ = sharded_graph_search(idx2, q_gt, mesh, top_k=TOP_K, beam_width=100, rerank_k=100)
+        out["reload_ids_equal"] = bool(np.array_equal(after.cpu().numpy(), before_save))
+        if not out["reload_ids_equal"]:
+            fails.append("ids changed through save_sharded / load_sharded")
+        del idx2
+        hg = HostGraphIndex.load(os.path.join(td, "shard0000.jvtpu"), device=dev)
+        res = hg.search(q_gt, top_k=TOP_K, beam_width=HOST_BEAM, expand=HOST_EXPAND)
+        shard0_gt = _exact_topk(base[: idx.n_local], q_gt, TOP_K)
+        out["shard0_host_recall"] = recall_at_k(res.ids.cpu().numpy(), shard0_gt, TOP_K)
+        if out["shard0_host_recall"] < HOST_RECALL_FLOOR:
+            fails.append(f"shard 0's file served by HostGraphIndex: recall {out['shard0_host_recall']}")
+        del hg, idx
+        torch.cuda.empty_cache()
+
+    # the sharded larger-than-memory build, served from the host
+    ltm_base = ds.base[:SHARD_LTM_N]
+    ltm_gt = _exact_topk(base[:SHARD_LTM_N], q_gt, TOP_K)
+    reads = []
+
+    def loader(a, b):
+        reads.append((a, b))
+        return ltm_base[a:b]
+
+    with tempfile.TemporaryDirectory() as td:
+        reset_counts()
+        with timer.section("on_disk_build"):
+            man = sharded_build_on_disk(td, loader, n=SHARD_LTM_N, dim=128, shards=SHARD_LTM_SHARDS, config=cfg,
+                                        device=dev)
+        launches["on_disk_build"] = read_counts()
+        files = [os.path.join(td, f) for f in man["shards"]]
+        digests = [_sha256(f) for f in files]
+        reset_counts()
+        sh = ShardedHostIndex.load(td, device=dev)
+        with timer.section("host_serve"):
+            res = sh.search(q_gt, top_k=TOP_K, beam_width=HOST_BEAM, expand=HOST_EXPAND)
+        host_recall = recall_at_k(res.ids.cpu().numpy(), ltm_gt, TOP_K)
+        mask = _accept_mask(np.random.default_rng(0), SHARD_LTM_N, SHARD_FILTER)
+        with timer.section("host_filtered"):
+            fres = sh.search(q_gt, top_k=TOP_K, beam_width=HOST_BEAM, expand=HOST_EXPAND, accept=mask)
+        launches["host_serve"] = read_counts()
+        fids = fres.ids.cpu().numpy()
+        outside = int(((fids >= 0) & ~mask[np.maximum(fids, 0)]).sum())
+        f_gt = _exact_topk(base[:SHARD_LTM_N], q_gt, TOP_K, torch.as_tensor(mask, device=dev))
+        del sh
+        n_reads = len(reads)
+        with timer.section("on_disk_rerun"):
+            sharded_build_on_disk(td, loader, n=SHARD_LTM_N, dim=128, shards=SHARD_LTM_SHARDS, config=cfg,
+                                  device=dev)
+        rerun_untouched = [_sha256(f) for f in files] == digests and len(reads) == n_reads
+        mesh2 = make_mesh(devices=list(mesh.devices[:SHARD_LTM_SHARDS]), axis_name="shard")
+        with timer.section("on_disk_load_sharded"):
+            lidx = load_sharded(td, mesh2)
+        lids, _ = sharded_graph_search(lidx, q_gt, mesh2, top_k=TOP_K, beam_width=HOST_BEAM, rerank_k=HOST_BEAM)
+        mesh_recall = recall_at_k(lids.cpu().numpy(), ltm_gt, TOP_K)
+        del lidx
+    out["on_disk"] = {
+        "n": SHARD_LTM_N, "shards": SHARD_LTM_SHARDS, "host_recall_beam_64": host_recall,
+        "filtered": {"selectivity": SHARD_FILTER, "recall": recall_at_k(fids, f_gt, TOP_K),
+                     "ids_outside_mask": outside},
+        "rerun_untouched": rerun_untouched, "load_sharded_recall_beam_64": mesh_recall,
+    }
+    if host_recall < HOST_RECALL_FLOOR:
+        fails.append(f"ShardedHostIndex recall@10 at beam {HOST_BEAM} is {host_recall} < {HOST_RECALL_FLOOR}")
+    if outside or (fids < 0).any():
+        fails.append(f"the {SHARD_FILTER} filter returned {outside} ids outside the mask or empty slots")
+    if not rerun_untouched:
+        fails.append("a re-run of sharded_build_on_disk touched committed shards")
+    if mesh_recall < HOST_RECALL_FLOOR:
+        fails.append(f"load_sharded of the on-disk shards: recall@10 {mesh_recall} < {HOST_RECALL_FLOOR}")
+
+    reset_counts()
+    with timer.section("dryrun_multichip"):
+        entry.dryrun_multichip(mesh.size, devices=mesh.devices)
+    launches["dryrun"] = read_counts()
+    out.update(seconds=timer.report(), launches=launches,
+               peak_memory={str(d): device_memory_stats(d) for d in cards})
+    emit(out)
+    if fails:
+        raise SystemExit(f"sharding phase: {fails}")
+    return out
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--n", type=int, default=200_000,
@@ -2700,9 +2964,10 @@ def main() -> None:
     lut16_20k = phase_lut16_parity(dev)
     micro = phase_micro(dev)
     base_cfg = phase_baseline_configs(args.n, dev)
+    shard = phase_sharding(dev)
 
-    main_path = {"packed_adj_update_inplace": ("sq4_path", "baseline_c4_build"),
-                 "fused_update_inplace": ("sq4_path", "baseline_c4_build"),
+    main_path = {"packed_adj_update_inplace": ("sq4_path", "baseline_c4_build", "sharding"),
+                 "fused_update_inplace": ("sq4_path", "baseline_c4_build", "sharding"),
                  "packed_adj_only_update_inplace": ("ltm_build",),
                  "scatter_rows3_inplace": ("mips_96d_build", "baseline_c3_build"), "scatter_rows_inplace": (),
                  "scatter_slots_inplace": (),
@@ -2747,7 +3012,12 @@ def main() -> None:
                    "lifecycle_pq_compaction": sq4["lifecycle"]["steps"]["pq_compaction"]["launches"][name],
                    "lifecycle_pq_compaction_carried":
                        sq4["lifecycle"]["steps"]["pq_compaction"]["carried"]["launches"][name],
-                   "micro_compact": micro["compact_launches"][name]}
+                   "micro_compact": micro["compact_launches"][name],
+                   "sharding": shard["launches"]["build"][name],
+                   "sharding_serve": shard["launches"]["serve"][name],
+                   "sharding_on_disk_build": shard["launches"]["on_disk_build"][name],
+                   "sharding_host_serve": shard["launches"]["host_serve"][name],
+                   "sharding_dryrun": shard["launches"]["dryrun"][name]}
         k["launches"] = sum(by_path[path] for path in main_path[name])
         k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}), flush=True)

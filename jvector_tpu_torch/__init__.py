@@ -5,10 +5,10 @@ so far: the SQ4 graph builds (packed and fused wave loops), the PQ-scored
 build, the HNSW hierarchy, two-pass search with an SQ4 or PQ-ADC first
 pass and an exact rerank, the index container, the larger-than-memory
 stream build and bounded-memory host serving, the other quantizers
-(anisotropic PQ and SQ4, BQ, NVQ, compressor files) and the grid runner.
-The
-port imports ``torch`` and never ``jax``; the JAX package stays the
-reference that the port's tests hold it against.
+(anisotropic PQ and SQ4, BQ, NVQ, compressor files), the grid runner, the
+index lifecycle and sharding over a mesh of devices.  The port imports
+``torch`` and never ``jax``; the JAX package stays the reference that the
+port's tests hold it against.
 
 - ``ops``           — similarity measures; ``ops/kernels`` holds the Python
   wrappers of the hand-written CUDA kernels (sources in ``csrc/``) with
@@ -20,7 +20,11 @@ reference that the port's tests hold it against.
 - ``disk``          — the index container (shared with the JAX package), the
   larger-than-memory stream build, host-tier rerank and host serving
 - ``util``          — synthetic corpora, exact ground truth, recall, host IO
+- ``parallel``      — a mesh of torch devices: query-parallel search,
+  node-sharded brute force, the sharded builds (in memory and on disk),
+  sharded serving and persistence
 - ``convert``       — the JAX package's state (as numpy) -> the port's
+- ``entry``         — a search step and the multi-device dry run
 - ``bench``         — the bench script, micro-benchmarks and the grid runner
 """
 

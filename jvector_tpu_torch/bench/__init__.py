@@ -13,5 +13,7 @@
   search compression (PQ, BQ, SQ4, FUSED_PQ), reranking (FP32, NVQ) and
   topK x overquery, with the trained-compressor cache.
 - ``metrics`` — recall@k, MAP and latency statistics (numpy).
-- ``diagnostics`` — ``run_metadata``, the provenance every row carries.
+- ``diagnostics`` — ``run_metadata``, the provenance every row carries;
+  ``profile_trace``, ``device_memory_stats``, ``StepTimer``,
+  ``SystemMonitor`` and ``DiskUsageMonitor``.
 """

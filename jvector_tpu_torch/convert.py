@@ -8,19 +8,22 @@ the card unless the caller asks for the CPU.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 import torch
 
 from jvector_tpu_torch.graph.index import GraphIndex, GraphLayer
-from jvector_tpu_torch.graph.score import LUT16ScoreProvider
+from jvector_tpu_torch.graph.score import ExactScoreProvider, LUT16ScoreProvider, SQ4ScoreProvider
 from jvector_tpu_torch.ops.similarity import SimilarityFunction
 from jvector_tpu_torch.quantization.bq import BinaryQuantization
 from jvector_tpu_torch.quantization.nvq import NVQuantization, NVQVectors
 from jvector_tpu_torch.quantization.pq import ProductQuantization
 from jvector_tpu_torch.quantization.sq import ScalarQuantization4
 from jvector_tpu_torch.util.device import resolve_device
+
+if TYPE_CHECKING:
+    from jvector_tpu_torch.parallel import Mesh, ShardedIndex
 
 
 def _layer(neighbors, scores, counts, device) -> GraphLayer:
@@ -152,3 +155,47 @@ def lut16_from_numpy(
 def codes_from_numpy(codes: np.ndarray, device: torch.device | str = "cuda") -> torch.Tensor:
     """Quantized codes (packed SQ4 ``[N, D_pad/2]`` or PQ ``[N, M]``, uint8)."""
     return torch.as_tensor(np.array(codes, np.uint8), device=resolve_device(device))
+
+
+_SQ4_PER_NODE = ("codes_packed", "node_w2", "node_norm2", "fused_packed", "fused_w2", "codes_aug")
+
+
+def sharded_index_from_numpy(
+    graphs: dict[str, np.ndarray],
+    vectors: np.ndarray,  # float32 [S, n_local, D] the exact providers' vectors
+    n_local: int,
+    n_total: int,
+    sim: SimilarityFunction | str,
+    mesh: "Mesh",
+    search_providers: dict[str, np.ndarray] | None = None,
+) -> "ShardedIndex":
+    """The JAX package's ``ShardedIndex``, its leaves as numpy arrays with a
+    leading shard axis, as the port's on ``mesh`` (shard ``s`` on
+    ``mesh.devices[s]``).
+
+    ``graphs`` holds the base layer's ``neighbors`` / ``scores`` /
+    ``counts`` and ``entry_node`` / ``num_nodes`` / ``deleted``;
+    ``search_providers`` (None for an exact-only index) the SQ4 provider's
+    fields, the per-node ones stacked and ``scale`` / ``offset`` shared.
+    """
+    from jvector_tpu_torch.parallel import ShardedIndex
+
+    sim = SimilarityFunction.parse(sim)
+    n_shards = vectors.shape[0]
+    if n_shards != mesh.size:
+        raise ValueError(f"{n_shards} shards, mesh has {mesh.size} devices")
+    g, sp = {k: np.asarray(v) for k, v in graphs.items()}, search_providers
+    gs, ps, sps = [], [], []
+    for s, dev in enumerate(mesh.devices):
+        gs.append(graph_from_numpy(g["neighbors"][s], g["scores"][s], g["counts"][s], int(g["entry_node"][s]),
+                                   int(g["num_nodes"][s]), g["deleted"][s], device=dev))
+        ps.append(ExactScoreProvider(vectors=torch.as_tensor(np.array(vectors[s], np.float32), device=dev), sim=sim))
+        if sp is not None:
+            sps.append(SQ4ScoreProvider(
+                **{k: torch.as_tensor(np.array(sp[k][s]), device=dev) for k in _SQ4_PER_NODE},
+                scale=torch.as_tensor(np.array(sp["scale"], np.float32), device=dev),
+                offset=torch.as_tensor(np.array(sp["offset"], np.float32), device=dev),
+                sim=sim,
+            ))
+    return ShardedIndex(graphs=gs, providers=ps, n_shards=n_shards, n_local=int(n_local), n_total=int(n_total),
+                        search_providers=sps if sp is not None else None, sim=sim)

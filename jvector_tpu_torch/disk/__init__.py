@@ -3,9 +3,8 @@
 (``format``), the stream build (``ltm``), the host rerank tier
 (``host_tier``), bounded-memory host serving (``host_graph``), the
 device-resident serving tier (``device_tier``) and N:1 compaction
-(``compaction``).
-
-Not ported yet: ``ShardedHostIndex`` (ROADMAP queue 1 item 7).
+(``compaction``); ``ShardedHostIndex`` serves a sharded directory of
+host-served shards.
 """
 
 from jvector_tpu_torch.disk.compaction import CompactionSource, compact_indexes, compact_on_disk

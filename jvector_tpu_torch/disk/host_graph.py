@@ -27,13 +27,15 @@ popped nodes on the host keeps a purged node from coming back.  A small
 accepted set is scored exactly instead (``accept_brute_cutoff``).
 ``threshold`` drops results below the similarity.
 
-Not ported yet (ROADMAP queue 1 item 7): ``ShardedHostIndex``; it raises
-``NotImplementedError``.
+:class:`ShardedHostIndex` serves a sharded directory: each shard a
+``HostGraphIndex``, the per-shard top-k merged by score.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -57,8 +59,6 @@ from jvector_tpu_torch.ops.similarity import SimilarityFunction, normalize_score
 from jvector_tpu_torch.quantization.sq import group_dims, unpack_nibble_rows_grouped
 from jvector_tpu_torch.util.device import resolve_device
 from jvector_tpu_torch.util.native import gather_rows
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 7: ShardedHostIndex)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -549,15 +549,98 @@ def _apply_threshold(res: SearchResult, threshold: float) -> SearchResult:
     return res._replace(ids=torch.where(ok, res.ids, -1), scores=torch.where(ok, res.scores, NEG_INF))
 
 
+@dataclasses.dataclass
 class ShardedHostIndex:
-    """Bounded-memory serving over a sharded directory: not ported yet."""
+    """Bounded-memory serving over a sharded directory (BASELINE config 5's
+    serve tier): every shard is a self-contained :class:`HostGraphIndex`
+    built by :func:`jvector_tpu_torch.parallel.sharded_build_on_disk`; a
+    query wave searches each shard and the per-shard top-k merge by score
+    (the reference's multi-segment search, ``GraphSearcher.java:386-404``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"ShardedHostIndex {_NOT_PORTED}")
+    Shards are searched one after another here; a deployment runs one
+    shard a host and merges the same per-shard results.  The merge is pure:
+    ids are globalised by each shard's offset, and scores are exact after
+    the default per-shard rerank, so they compare without a shared
+    quantizer.
+    """
+
+    shards: list[HostGraphIndex]
+    offsets: list[int]  # global ordinal of each shard's local node 0
+    n_total: int
 
     @staticmethod
-    def load(directory) -> "ShardedHostIndex":
-        raise NotImplementedError(f"ShardedHostIndex {_NOT_PORTED}")
+    def load(directory, device: torch.device | str | None = None) -> "ShardedHostIndex":
+        """Open every shard of a manifest, searches on ``device`` (default:
+        the card)."""
+        directory = os.fspath(directory)
+        with open(os.path.join(directory, "manifest.json")) as f:
+            man = json.load(f)
+        shards = [HostGraphIndex.load(os.path.join(directory, fname), device=device) for fname in man["shards"]]
+        return ShardedHostIndex(
+            shards=shards, offsets=[s * man["n_local"] for s in range(man["n_shards"])], n_total=man["n_total"]
+        )
+
+    def search(
+        self,
+        queries,
+        top_k: int,
+        beam_width: int = 64,
+        expand: int = 4,
+        max_iters: int = 200,
+        rerank=None,  # forwarded to every shard (None: each shard's inline vectors)
+        pipeline: int = 2,
+        accept: np.ndarray | None = None,  # bool [n_total] global mask
+        threshold: float = 0.0,
+        accept_brute_cutoff: int | None = None,
+    ) -> SearchResult:
+        """Search every shard, globalise the ids, merge the top-k by score
+        (a stable sort, so equal scores keep shard order).
+
+        ``accept`` is a global-ordinal mask; each shard runs the filtered
+        search on its slice, ``[offset, next offset)`` (offsets need not be
+        uniform; the last shard ends at ``n_total``), and a shard with no
+        accepted node is skipped.
+        """
+        acc = None if accept is None else np.asarray(accept, bool)
+        per, offs = [], []
+        for i, (hg, off) in enumerate(zip(self.shards, self.offsets)):
+            # slice by the shard's node range, not its array capacity: the
+            # containers are padded to one capacity, and a capacity-wide
+            # slice would lay the next shard's bits on this one's padding
+            end = self.offsets[i + 1] if i + 1 < len(self.offsets) else self.n_total
+            acc_s = None
+            if acc is not None:
+                acc_s = acc[off:end]
+                if not acc_s.any():
+                    continue  # nothing in this shard can be returned
+            per.append(hg.search(
+                queries, top_k=top_k, beam_width=beam_width, expand=expand, max_iters=max_iters, rerank=rerank,
+                pipeline=pipeline, accept=acc_s, threshold=threshold, accept_brute_cutoff=accept_brute_cutoff,
+            ))
+            offs.append(off)
+        dev = self.shards[0].device
+        if not per:  # an empty filter: nothing anywhere can be returned
+            q = queries.shape[0]
+            z = torch.zeros((q,), dtype=torch.int32, device=dev)
+            empty = torch.full((q, top_k), NEG_INF, device=dev)
+            return SearchResult(ids=torch.full((q, top_k), -1, dtype=torch.int32, device=dev), scores=empty,
+                                visited_count=z, expanded_count=z, reranked_count=z, approx_scores=empty.clone())
+
+        def cat(xs):
+            return torch.cat([x.to(dev) for x in xs], dim=1)
+
+        ids = cat([torch.where(r.ids >= 0, r.ids + off, -1) for r, off in zip(per, offs)])
+        scores = cat([r.scores for r in per])
+        approx = cat([r.scores if r.approx_scores is None else r.approx_scores for r in per])
+        order = torch.argsort(-scores, dim=1, stable=True)[:, :top_k]
+        return SearchResult(
+            ids=torch.gather(ids, 1, order),
+            scores=torch.gather(scores, 1, order),
+            visited_count=sum(r.visited_count.to(dev) for r in per),
+            expanded_count=sum(r.expanded_count.to(dev) for r in per),
+            reranked_count=sum(r.reranked_count.to(dev) for r in per),
+            approx_scores=torch.gather(approx, 1, order),
+        )
 
 
 def write_sq4_index(path, graph, sq, codes_packed, provider, sim, **extra_features) -> None:

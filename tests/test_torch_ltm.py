@@ -190,5 +190,3 @@ def test_host_graph_search_ids_equal(pipeline, corpus, tmp_path_factory, monkeyp
     np.testing.assert_array_equal(fb.ids.numpy(), np.asarray(fa.ids))
     np.testing.assert_array_equal(fb.expanded_count.numpy(), np.asarray(fa.expanded_count))
     assert mask[fb.ids.numpy()].all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thg.ShardedHostIndex.load(path)

@@ -56,7 +56,8 @@ def test_import_without_jax():
         "jvector_tpu_torch.disk.host_graph, jvector_tpu_torch.util.native, jvector_tpu_torch.bench.headline, "
         "jvector_tpu_torch.ops.adc16, jvector_tpu_torch.ops.kernels.adc16, jvector_tpu_torch.bench.micro, "
         "jvector_tpu_torch.bench.diagnostics, jvector_tpu_torch.graph.mutation, jvector_tpu_torch.graph.nndescent, "
-        "jvector_tpu_torch.disk.device_tier, jvector_tpu_torch.disk.compaction; "
+        "jvector_tpu_torch.disk.device_tier, jvector_tpu_torch.disk.compaction, jvector_tpu_torch.parallel.sharding, "
+        "jvector_tpu_torch.parallel.build, jvector_tpu_torch.entry; "
         "print('jax' in sys.modules, any(m.split('.')[0] == 'jvector_tpu' for m in sys.modules))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True)
