@@ -256,6 +256,32 @@ Phases, each printing one JSON line:
    the mesh's devices.  The line holds each step's seconds
    (``StepTimer``), the launches by step and each card's peak memory
    (``device_memory_stats``).
+13. harness (``"phase": "harness"``): the catalog
+   ``yaml-configs/dataset-catalogs/local.yml`` read by the port's YAML
+   reader, its ``synth-100k`` opened with the ground truth on the card
+   (100,000 x 128, 2,048 queries, k = 100, seed 0, 200 clusters); an
+   ``IPCService`` on a socket in a temporary directory, on the card, and
+   one ``IPCClient`` session: ``CREATE 128 euclidean 32 100``, rows
+   0-79,999 in 80 ``WRITE`` commands of 1,000 (each float as ``'%.9g'``,
+   so the float32 values arrive bit for bit), ``OPTIMIZE`` (``OK 80000``;
+   the default SQ4 build in waves of 256: K1 = K2 = 313 launches or it
+   fails), rows 80,000-99,999, ``OPTIMIZE`` again (``OK 100000``:
+   ``add_nodes``), ``SEARCH 100 10`` over the first 1,024 queries in four
+   commands of 256 (recall@10 >= 0.95 against the catalog's ground
+   truth), ``MEMORY`` (an integer between the adjacency's plus the
+   vectors' bytes and ``torch.cuda.max_memory_allocated()``), ``SAVE``;
+   a second connection ``LOAD``s it (``OK 100000``) and the same
+   ``SEARCH`` commands must give identical ``RESULT`` lines; any
+   ``ERROR`` reply fails.  Then the bench CLI in-process,
+   ``jvector_tpu_torch.bench.__main__.main(["synth-100k", "--config",
+   "yaml-configs/sq4.yml", "--catalog", <local.yml>, "--output", <tmp>])``:
+   exit code 0, one CSV and one JSONL, three rows (topK 10 x overquery 2 /
+   4 / 6, SQ4 serve, FP32 rerank), K1 = K2 = 196 (waves of 512), recall@10
+   >= 0.95 at overquery 6 and every row within 0.02 of the JAX CLI's on
+   the same entry and YAML (``experiments/torch_harness_cpu.py``).  The
+   line holds each IPC step's seconds, WRITE vectors/s, SEARCH QPS and
+   the launches by step (``launches_by_path``: ``ipc_optimize``,
+   ``ipc_add_nodes``, ``ipc_search``, ``bench_cli``).
 
 Phases run in this order, phase 10's parts inside phases 5, 6 and 7.  Kernel
 launch counts are read per path: set to 0 just before a path, read just
@@ -440,6 +466,25 @@ SHARD_LTM_N, SHARD_LTM_SHARDS = 40_000, 2
 SHARD_FILTER = 0.10
 JAX_SHARDED_RECALL_100K = {20: 1.0, 50: 1.0, 100: 1.0}
 JAX_SHARDED_FLOOR_RECALL_100K = 0.7826171875  # at beam 100, floor_slack 0.0
+# the harness phase: the catalog's synth-100k (100,000 x 128, 2,048 queries,
+# k = 100, seed 0, 200 clusters), read through the port's catalog and YAML
+# reader; the IPC session writes HARNESS_IPC_FIRST rows in commands of
+# HARNESS_WRITE_ROWS, OPTIMIZEs (the default SQ4 build in waves of
+# HARNESS_IPC_WAVE, the service's CREATE), writes the rest and OPTIMIZEs
+# again (add_nodes), then SEARCHes HARNESS_IPC_QUERIES queries in commands
+# of HARNESS_IPC_CHUNK at ef 100, top 10; the bench CLI runs
+# yaml-configs/sq4.yml (build waves of HARNESS_CLI_WAVE, GraphConfig's
+# default) and each row is held within HARNESS_CLI_SLACK of the JAX CLI's
+# row on the same entry and YAML (experiments/torch_harness_cpu.py --part
+# cli: JAX on the CPU, its run HARNESS_JAX_CLI_SECONDS s)
+HARNESS_DATASET = "synth-100k"
+HARNESS_N, HARNESS_IPC_FIRST = 100_000, 80_000
+HARNESS_WRITE_ROWS = 1_000
+HARNESS_IPC_WAVE, HARNESS_CLI_WAVE = 256, 512
+HARNESS_IPC_QUERIES, HARNESS_IPC_CHUNK = 1_024, 256
+HARNESS_CLI_SLACK = 0.02
+JAX_CLI_RECALL_100K = {2.0: 0.9664, 4.0: 0.9991, 6.0: 0.9999}  # topK 10, SQ4 + FP32 rerank, by overquery
+HARNESS_JAX_CLI_SECONDS = 634.74
 
 
 def emit(obj: dict) -> None:
@@ -2934,6 +2979,171 @@ def phase_sharding(dev: torch.device) -> dict:
     return out
 
 
+def _ipc_rows(rows: np.ndarray) -> str:
+    """``WRITE`` / ``SEARCH`` vector groups, each float32 as ``'%.9g'`` (nine
+    significant digits give the same float32 back)."""
+    return " ".join("[" + ",".join("%.9g" % x for x in row) + "]" for row in rows.tolist())
+
+
+def _ipc_session(svc, ds, tmp: str, fails: list) -> dict:
+    """One IPC session on ``svc`` over ``ds``, then a second connection that
+    LOADs what the first SAVEd; every reply starting ``ERROR`` fails."""
+    from jvector_tpu_torch.bench.ipc import IPCClient
+    from jvector_tpu_torch.util.datasets import recall_at_k
+
+    out, launches = {"steps": {}}, {}
+    queries = ds.queries[:HARNESS_IPC_QUERIES]
+    search_cmds = [f"SEARCH {API_BEAM} {TOP_K} " + _ipc_rows(queries[i : i + HARNESS_IPC_CHUNK])
+                   for i in range(0, HARNESS_IPC_QUERIES, HARNESS_IPC_CHUNK)]
+
+    def call(client, step: str, cmd: str, want: str | None = None) -> str:
+        reply = client.call(cmd)
+        if reply.startswith("ERROR") or (want is not None and reply != want):
+            fails.append(f"IPC {step}: {reply[:300]!r}" + (f", expected {want!r}" if want else ""))
+        return reply
+
+    def timed_step(name: str, fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        value = fn()
+        torch.cuda.synchronize()
+        out["steps"][name] = time.time() - t0
+        launches[name] = read_counts()
+        return value
+
+    def write(client, lo: int, hi: int) -> None:
+        for i in range(lo, hi, HARNESS_WRITE_ROWS):
+            call(client, "WRITE", "WRITE " + _ipc_rows(ds.base[i : min(i + HARNESS_WRITE_ROWS, hi)]), "OK")
+
+    def searches(client) -> list[str]:
+        return [call(client, "SEARCH", cmd) for cmd in search_cmds]
+
+    path = os.path.join(tmp, "ipc_index.jvtpu")
+    c = IPCClient(svc.socket_path)
+    try:
+        call(c, "CREATE", f"CREATE {ds.dimension} euclidean 32 100", "OK")
+        timed_step("write_80k", lambda: write(c, 0, HARNESS_IPC_FIRST))
+        timed_step("optimize", lambda: call(c, "OPTIMIZE", "OPTIMIZE", f"OK {HARNESS_IPC_FIRST}"))
+        timed_step("write_20k", lambda: write(c, HARNESS_IPC_FIRST, HARNESS_N))
+        timed_step("optimize_add_nodes", lambda: call(c, "OPTIMIZE", "OPTIMIZE", f"OK {HARNESS_N}"))
+        results = timed_step("search", lambda: searches(c))
+        memory = call(c, "MEMORY", "MEMORY")
+        timed_step("save", lambda: call(c, "SAVE", f"SAVE {path}", "OK"))
+    finally:
+        c.close()
+    c = IPCClient(svc.socket_path)
+    try:
+        timed_step("load", lambda: call(c, "LOAD", f"LOAD {path}", f"OK {HARNESS_N}"))
+        reloaded = timed_step("search_after_load", lambda: searches(c))
+    finally:
+        c.close()
+
+    ids = np.full((HARNESS_IPC_QUERIES, TOP_K), -1, np.int64)
+    rows = [r for reply in results if reply.startswith("RESULT ") for r in reply[len("RESULT "):].split(";")]
+    for q, r in enumerate(rows[:HARNESS_IPC_QUERIES]):
+        got = [int(x) for x in r.split()][:TOP_K]
+        ids[q, : len(got)] = got
+    recall = recall_at_k(ids, ds.ground_truth[:HARNESS_IPC_QUERIES], TOP_K)
+    n_waves = -(-HARNESS_IPC_FIRST // HARNESS_IPC_WAVE)
+    mem_floor = HARNESS_N * 32 * 4 + HARNESS_N * ds.dimension * 4  # adjacency + vectors
+    mem_ceiling = torch.cuda.max_memory_allocated()
+    mem = int(memory.split()[1]) if memory.startswith("OK ") and memory.split()[1].isdigit() else -1
+    out.update({
+        "n_waves": n_waves, "result_rows": len(rows), "recall_at_10": recall,
+        "memory_bytes": mem, "memory_floor": mem_floor, "max_memory_allocated": mem_ceiling,
+        "identical_after_load": reloaded == results,
+        "write_vectors_per_s": HARNESS_N / (out["steps"]["write_80k"] + out["steps"]["write_20k"]),
+        "search_qps": HARNESS_IPC_QUERIES / out["steps"]["search"],
+        "launches": launches,
+    })
+    for k in ("packed_adj_update_inplace", "fused_update_inplace"):
+        if launches["optimize"][k] != n_waves:
+            fails.append(f"IPC OPTIMIZE launched {k} {launches['optimize'][k]} times, expected {n_waves}")
+    if len(rows) != HARNESS_IPC_QUERIES or recall < RECALL_FLOOR:
+        fails.append(f"IPC SEARCH: {len(rows)} result rows, recall@10 {recall} (floor {RECALL_FLOOR})")
+    if not mem_floor <= mem <= mem_ceiling:
+        fails.append(f"IPC MEMORY {memory!r} outside [{mem_floor}, {mem_ceiling}]")
+    if reloaded != results:
+        fails.append("the RESULT lines after SAVE / LOAD differ")
+    return out
+
+
+def _bench_cli(catalog: str, config: str, tmp: str, fails: list) -> dict:
+    """``python -m jvector_tpu_torch.bench`` in-process (so the launch
+    counters can be read) over the catalog entry and ``config``."""
+    from jvector_tpu_torch.bench.__main__ import main as bench_main
+
+    reports = os.path.join(tmp, "reports")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rc = bench_main([HARNESS_DATASET, "--config", config, "--catalog", catalog, "--output", reports])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = read_counts()
+    files = sorted(os.listdir(reports)) if os.path.isdir(reports) else []
+    rows = []
+    for f in files:
+        if f.endswith(".jsonl"):
+            with open(os.path.join(reports, f)) as fh:
+                rows += [json.loads(line) for line in fh]
+    n_waves = -(-HARNESS_N // HARNESS_CLI_WAVE)
+    table = {str(r["overquery"]): {"recall": r["recall"], "jax_recall": JAX_CLI_RECALL_100K.get(r["overquery"]),
+                                   "qps_avg": r["qps_avg"], "index_build_time_s": r["index_build_time_s"],
+                                   "compression": r["compression"], "reranking": r["reranking"]} for r in rows}
+    out = {"rc": rc, "seconds": secs, "files": files, "n_waves": n_waves, "rows": table,
+           "jax_cli_seconds": HARNESS_JAX_CLI_SECONDS, "launches": launches}
+    if rc != 0 or [f.rsplit(".", 1)[1] for f in files] != ["csv", "jsonl"]:
+        fails.append(f"bench CLI: rc {rc}, reports {files}")
+    if sorted(r["overquery"] for r in rows) != sorted(JAX_CLI_RECALL_100K) or any(
+            r["topK"] != TOP_K or r["compression"] != "SQ4" or r["reranking"] != "FP32" for r in rows):
+        fails.append(f"bench CLI rows: {[(r['topK'], r['overquery'], r['compression']) for r in rows]}")
+    for k in ("packed_adj_update_inplace", "fused_update_inplace"):
+        if launches[k] != n_waves:
+            fails.append(f"bench CLI launched {k} {launches[k]} times, expected {n_waves}")
+    for r in rows:
+        ref = JAX_CLI_RECALL_100K.get(r["overquery"])
+        if ref is None or abs(r["recall"] - ref) > HARNESS_CLI_SLACK:
+            fails.append(f"bench CLI recall {r['recall']} at overquery {r['overquery']}, JAX {ref}")
+    top = [r["recall"] for r in rows if r["overquery"] == max(JAX_CLI_RECALL_100K)]
+    if not top or top[0] < RECALL_FLOOR:
+        fails.append(f"bench CLI recall@10 at overquery {max(JAX_CLI_RECALL_100K)}: {top} < {RECALL_FLOOR}")
+    return out
+
+
+def phase_harness(dev: torch.device) -> dict:
+    """Phase 13: the IPC service and the bench CLI over the catalog's
+    synth-100k, on the card."""
+    from jvector_tpu_torch.bench.ipc import IPCService
+    from jvector_tpu_torch.util.catalog import Catalog
+
+    t_phase = time.time()
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "yaml-configs")
+    catalog = os.path.join(configs, "dataset-catalogs", "local.yml")
+    ds, data_s = _timed(lambda: Catalog.load(catalog).open(HARNESS_DATASET, device=dev))
+    fails = []
+    if (ds.base.shape, ds.queries.shape, ds.ground_truth.shape) != ((HARNESS_N, 128), (2048, 128), (2048, 100)):
+        fails.append(f"{HARNESS_DATASET}: {ds.base.shape}, {ds.queries.shape}, {ds.ground_truth.shape}")
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="jvh") as tmp:
+        svc = IPCService(os.path.join(tmp, "ipc.sock"), device=dev)
+        svc.start()
+        try:
+            ipc = _ipc_session(svc, ds, tmp, fails)
+        finally:
+            svc.stop()
+        del ds
+        torch.cuda.empty_cache()
+        cli = _bench_cli(catalog, os.path.join(configs, "sq4.yml"), tmp, fails)
+    out = {"phase": "harness", "dataset": HARNESS_DATASET, "n": HARNESS_N, "dim": 128, "data_seconds": data_s,
+           "ipc": ipc, "cli": cli, "seconds": time.time() - t_phase, "fails": fails}
+    emit(out)
+    if fails:
+        raise SystemExit(f"harness phase: {fails}")
+    return out
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--n", type=int, default=200_000,
@@ -2965,9 +3175,11 @@ def main() -> None:
     micro = phase_micro(dev)
     base_cfg = phase_baseline_configs(args.n, dev)
     shard = phase_sharding(dev)
+    harness = phase_harness(dev)
 
-    main_path = {"packed_adj_update_inplace": ("sq4_path", "baseline_c4_build", "sharding"),
-                 "fused_update_inplace": ("sq4_path", "baseline_c4_build", "sharding"),
+    main_path = {"packed_adj_update_inplace": ("sq4_path", "baseline_c4_build", "sharding", "ipc_optimize",
+                                               "bench_cli"),
+                 "fused_update_inplace": ("sq4_path", "baseline_c4_build", "sharding", "ipc_optimize", "bench_cli"),
                  "packed_adj_only_update_inplace": ("ltm_build",),
                  "scatter_rows3_inplace": ("mips_96d_build", "baseline_c3_build"), "scatter_rows_inplace": (),
                  "scatter_slots_inplace": (),
@@ -3017,7 +3229,12 @@ def main() -> None:
                    "sharding_serve": shard["launches"]["serve"][name],
                    "sharding_on_disk_build": shard["launches"]["on_disk_build"][name],
                    "sharding_host_serve": shard["launches"]["host_serve"][name],
-                   "sharding_dryrun": shard["launches"]["dryrun"][name]}
+                   "sharding_dryrun": shard["launches"]["dryrun"][name],
+                   "ipc_optimize": harness["ipc"]["launches"]["optimize"][name],
+                   "ipc_add_nodes": harness["ipc"]["launches"]["optimize_add_nodes"][name],
+                   "ipc_search": (harness["ipc"]["launches"]["search"][name]
+                                  + harness["ipc"]["launches"]["search_after_load"][name]),
+                   "bench_cli": harness["cli"]["launches"][name]}
         k["launches"] = sum(by_path[path] for path in main_path[name])
         k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,12 +1,13 @@
 """jvector_tpu_torch — the PyTorch/CUDA port of ``jvector_tpu``.
 
-The same layout and public names as the JAX package, for the slices ported
-so far: the SQ4 graph builds (packed and fused wave loops), the PQ-scored
-build, the HNSW hierarchy, two-pass search with an SQ4 or PQ-ADC first
-pass and an exact rerank, the index container, the larger-than-memory
-stream build and bounded-memory host serving, the other quantizers
-(anisotropic PQ and SQ4, BQ, NVQ, compressor files), the grid runner, the
-index lifecycle and sharding over a mesh of devices.  The port imports
+The same layout and public names as the JAX package: the SQ4 graph
+builds (packed and fused wave loops), the PQ-scored build, the HNSW
+hierarchy, two-pass search with an SQ4 or PQ-ADC first pass and an exact
+rerank, the index container, the larger-than-memory stream build and
+bounded-memory host serving, the other quantizers (anisotropic PQ and SQ4,
+BQ, NVQ, compressor files), the grid runner, the index lifecycle, sharding
+over a mesh of devices, and the harness (the IPC service, the bench CLI
+over YAML catalogs, dataset IO, memory accounting).  The port imports
 ``torch`` and never ``jax``; the JAX package stays the reference that the
 port's tests hold it against.
 
@@ -19,13 +20,16 @@ port's tests hold it against.
   query-wave beam search, wave builders, hierarchy
 - ``disk``          — the index container (shared with the JAX package), the
   larger-than-memory stream build, host-tier rerank and host serving
-- ``util``          — synthetic corpora, exact ground truth, recall, host IO
+- ``util``          — synthetic corpora, exact ground truth, recall, host IO,
+  fvecs / ivecs / bvecs files, dataset catalogs, the YAML reader, memory
+  accounting
 - ``parallel``      — a mesh of torch devices: query-parallel search,
   node-sharded brute force, the sharded builds (in memory and on disk),
   sharded serving and persistence
 - ``convert``       — the JAX package's state (as numpy) -> the port's
 - ``entry``         — a search step and the multi-device dry run
-- ``bench``         — the bench script, micro-benchmarks and the grid runner
+- ``bench``         — the bench script, micro-benchmarks, the grid runner,
+  the IPC service and the bench CLI
 """
 
 from jvector_tpu_torch.disk import (
@@ -40,6 +44,7 @@ from jvector_tpu_torch.graph import (
     GraphIndex,
     SearchResult,
     build_graph,
+    resume,
     search,
 )
 from jvector_tpu_torch.ops.similarity import SimilarityFunction
@@ -50,6 +55,8 @@ from jvector_tpu_torch.quantization import (
     ScalarQuantization4,
 )
 
+__version__ = "0.2.0"
+
 __all__ = [
     "SimilarityFunction",
     "GraphConfig",
@@ -57,6 +64,7 @@ __all__ = [
     "SearchResult",
     "build_graph",
     "search",
+    "resume",
     "ScalarQuantization4",
     "ProductQuantization",
     "BinaryQuantization",
@@ -66,4 +74,5 @@ __all__ = [
     "HostVectorStore",
     "load_index",
     "write_index",
+    "__version__",
 ]

@@ -16,4 +16,22 @@
 - ``diagnostics`` — ``run_metadata``, the provenance every row carries;
   ``profile_trace``, ``device_memory_stats``, ``StepTimer``,
   ``SystemMonitor`` and ``DiskUsageMonitor``.
+- ``ipc`` — the counterpart of ``jvector_tpu/bench/ipc.py``: the text
+  protocol over a Unix socket (``IPCService``, ``IPCClient``).
+- ``__main__`` — the bench CLI, ``python -m jvector_tpu_torch.bench
+  [patterns] --config ... --catalog ... --output ... [--device cpu]``:
+  catalog-selected datasets x YAML configs through ``run_yaml``.
 """
+
+from jvector_tpu_torch.bench.grid import Grid, GridConfig, run_yaml
+from jvector_tpu_torch.bench.metrics import AccuracyMetrics, LatencyStats, mean_average_precision, recall_at_k
+
+__all__ = [
+    "AccuracyMetrics",
+    "LatencyStats",
+    "recall_at_k",
+    "mean_average_precision",
+    "Grid",
+    "GridConfig",
+    "run_yaml",
+]

@@ -332,20 +332,35 @@ class Grid:
                 f.write(json.dumps(row) + "\n")
 
 
+def _report_stem(out_dir: str) -> str:
+    """A report name of the second's stamp that no report in ``out_dir``
+    has yet: ``experiments-<stamp>``, else ``experiments-<stamp>-<k>``.
+    The name is claimed by creating its JSONL exclusively, so two runs that
+    finish in one second keep both pairs."""
+    stamp = time.strftime("%Y%m%dT%H%M%S")
+    for k in itertools.count():
+        stem = f"experiments-{stamp}" + (f"-{k}" if k else "")
+        if os.path.exists(os.path.join(out_dir, f"{stem}.csv")):
+            continue
+        try:
+            open(os.path.join(out_dir, f"{stem}.jsonl"), "x").close()
+        except FileExistsError:
+            continue
+        return stem
+
+
 def run_yaml(yaml_path: str, dataset: DataSet, out_dir: str | None = None,
              device: torch.device | str | None = None) -> list[dict]:
-    """BenchYAML's counterpart: load a reference-schema YAML and run the
-    grid on ``device``.  Needs PyYAML (imported here, so the module loads
-    without it)."""
-    import yaml
+    """BenchYAML's counterpart: load a reference-schema YAML (read by
+    ``util.yaml_subset``) and run the grid on ``device``; with ``out_dir``,
+    write the rows as one CSV + JSONL pair of its own."""
+    from jvector_tpu_torch.util import yaml_subset
 
-    with open(yaml_path) as f:
-        y = yaml.safe_load(f)
-    grid = Grid(dataset, GridConfig.from_yaml_dict(y), device=device)
+    grid = Grid(dataset, GridConfig.from_yaml_dict(yaml_subset.load_file(yaml_path)), device=device)
     rows = grid.run()
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        stamp = time.strftime("%Y%m%dT%H%M%S")
-        grid.write_csv(os.path.join(out_dir, f"experiments-{stamp}.csv"))
-        grid.write_jsonl(os.path.join(out_dir, f"experiments-{stamp}.jsonl"))
+        stem = _report_stem(out_dir)
+        grid.write_csv(os.path.join(out_dir, f"{stem}.csv"))
+        grid.write_jsonl(os.path.join(out_dir, f"{stem}.jsonl"))
     return rows

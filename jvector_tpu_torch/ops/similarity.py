@@ -34,6 +34,30 @@ class SimilarityFunction(str, enum.Enum):
         return cls(str(getattr(v, "value", v)).lower())  # also the JAX package's enum
 
 
+def dot_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the last axis (broadcasts leading axes)."""
+    return torch.sum(a * b, dim=-1)
+
+
+def squared_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distance over the last axis."""
+    d = a - b
+    return torch.sum(d * d, dim=-1)
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity over the last axis."""
+    num = torch.sum(a * b, dim=-1)
+    den = torch.sqrt(torch.sum(a * a, dim=-1) * torch.sum(b * b, dim=-1))
+    return num / torch.clamp(den, min=1e-30)
+
+
+def l2_normalize(a: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Reference: ``VectorUtil.l2normalize``."""
+    n = torch.sqrt(torch.sum(a * a, dim=axis, keepdim=True))
+    return a / torch.clamp(n, min=1e-30)
+
+
 def normalize_score(raw: torch.Tensor, sim: SimilarityFunction | str) -> torch.Tensor:
     """Raw measure -> similarity score (higher = closer)."""
     sim = SimilarityFunction.parse(sim)

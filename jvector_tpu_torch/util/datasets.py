@@ -1,21 +1,29 @@
-"""Synthetic corpora with exact ground truth (counterpart of
-``jvector_tpu/util/datasets.py``).
+"""Datasets: synthetic corpora with exact ground truth and the on-disk
+loaders (counterpart of ``jvector_tpu/util/datasets.py``).
 
 ``synthetic_dataset`` and ``recall_at_k`` are numpy and give the same corpus
 from the same seed as the JAX package; ``exact_ground_truth`` is a blocked
 ``torch.topk`` on the given device (the card unless the caller asks for the
-CPU).
+CPU).  ``load_siftsmall``, ``load_hdf5`` and ``load_dataset`` read TEXMEX
+fvecs triples and ann-benchmarks HDF5 files on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from jvector_tpu_torch.ops.similarity import SimilarityFunction, pairwise_scores
 from jvector_tpu_torch.util.device import resolve_device
+from jvector_tpu_torch.util.io import read_fvecs, read_ivecs
+
+# siftsmall's TEXMEX files, looked for inside the checkout
+REFERENCE_SIFTSMALL_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "reference", "siftsmall"
+)
 
 
 @dataclasses.dataclass
@@ -98,6 +106,67 @@ def synthetic_dataset(
         queries /= np.linalg.norm(queries, axis=1, keepdims=True)
     gt = exact_ground_truth(base, queries, k, sim, device=device)
     return DataSet(name=name, similarity=sim, base=base, queries=queries, ground_truth=gt)
+
+
+def load_siftsmall(directory: str | None = None) -> DataSet | None:
+    """The siftsmall set if its base vectors exist on disk, else None (the
+    reference bundles only queries and ground truth, ``SiftSmall.java:387``);
+    callers then fall back to :func:`synthetic_dataset`."""
+    directory = directory or REFERENCE_SIFTSMALL_DIR
+    base_path = os.path.join(directory, "siftsmall_base.fvecs")
+    if not os.path.exists(base_path):
+        return None
+    return DataSet(
+        name="siftsmall",
+        similarity=SimilarityFunction.EUCLIDEAN,
+        base=read_fvecs(base_path),
+        queries=read_fvecs(os.path.join(directory, "siftsmall_query.fvecs")),
+        ground_truth=read_ivecs(os.path.join(directory, "siftsmall_groundtruth.ivecs")).astype(np.int32),
+    )
+
+
+def load_hdf5(path: str | os.PathLike, name: str | None = None) -> DataSet:
+    """An ann-benchmarks HDF5 dataset: ``train`` [N, D], ``test`` [Q, D],
+    ``neighbors`` [Q, K], attribute ``distance`` (euclidean, angular /
+    cosine, dot / ip).  Needs h5py, imported here."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        base = np.asarray(f["train"], np.float32)
+        queries = np.asarray(f["test"], np.float32)
+        gt = np.asarray(f["neighbors"], np.int32)
+        dist = str(f.attrs.get("distance", "euclidean")).lower()
+    sim = {
+        "angular": SimilarityFunction.COSINE,
+        "cosine": SimilarityFunction.COSINE,
+        "dot": SimilarityFunction.DOT_PRODUCT,
+        "ip": SimilarityFunction.DOT_PRODUCT,
+    }.get(dist, SimilarityFunction.EUCLIDEAN)
+    return DataSet(
+        name=name or os.path.splitext(os.path.basename(str(path)))[0],
+        similarity=sim,
+        base=base,
+        queries=queries,
+        ground_truth=gt,
+    )
+
+
+def load_dataset(path_or_name: str) -> DataSet | None:
+    """An ``.hdf5`` / ``.h5`` file, or a prefix ``X`` of ``X_base.fvecs`` /
+    ``X_query.fvecs`` / ``X_groundtruth.ivecs`` (the TEXMEX convention);
+    None when the files are absent."""
+    if str(path_or_name).endswith((".hdf5", ".h5")):
+        return load_hdf5(path_or_name) if os.path.exists(path_or_name) else None
+    base_p = f"{path_or_name}_base.fvecs"
+    if not os.path.exists(base_p):
+        return None
+    return DataSet(
+        name=os.path.basename(str(path_or_name)),
+        similarity=SimilarityFunction.EUCLIDEAN,
+        base=read_fvecs(base_p),
+        queries=read_fvecs(f"{path_or_name}_query.fvecs"),
+        ground_truth=read_ivecs(f"{path_or_name}_groundtruth.ivecs").astype(np.int32),
+    )
 
 
 def recall_at_k(result_ids: np.ndarray, ground_truth: np.ndarray, k: int) -> float:

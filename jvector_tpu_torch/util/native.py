@@ -1,5 +1,6 @@
 """Host IO helpers over the repo's native library (counterpart of
-``jvector_tpu/util/native.py``: ``crc32_file`` and ``gather_rows`` only).
+``jvector_tpu/util/native.py``: ``crc32_file``, ``read_fvecs_native``,
+``pwrite_rows`` and ``gather_rows``).
 
 ``native/jvtpu_io.cpp`` is compiled with the host C++ compiler at first use
 into ``jvector_tpu_torch/_build/`` (listed in ``.gitignore``) and bound with
@@ -63,6 +64,19 @@ def _load() -> "ctypes.CDLL | None":
                     ctypes.c_void_p, ctypes.c_int,
                 ]
                 lib.jvtpu_gather_rows.restype = ctypes.c_int
+                lib.jvtpu_fvecs_info.argtypes = [
+                    ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
+                ]
+                lib.jvtpu_fvecs_info.restype = ctypes.c_int
+                lib.jvtpu_fvecs_to_dense.argtypes = [
+                    ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int,
+                ]
+                lib.jvtpu_fvecs_to_dense.restype = ctypes.c_int
+                lib.jvtpu_pwrite_rows.argtypes = [
+                    ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_int,
+                ]
+                lib.jvtpu_pwrite_rows.restype = ctypes.c_int
                 _lib = lib
             except (OSError, RuntimeError, subprocess.SubprocessError):
                 _load_failed = True
@@ -92,6 +106,52 @@ def crc32_file(path: str, offset: int, length: int, n_threads: int = 8) -> int:
             crc = zlib.crc32(chunk, crc)
             left -= len(chunk)
     return crc & 0xFFFFFFFF
+
+
+_EBADMSG, _EINVAL = -74, -22  # the native library's error returns
+
+
+def read_fvecs_native(path: str, max_vectors: int | None = None) -> "np.ndarray | None":
+    """Parallel fvecs load into float32 ``[N, D]``; None when the native
+    library is unavailable or the read fails for another reason than the
+    file's contents, which raise ``ValueError``."""
+    lib = _load()
+    if lib is None:
+        return None
+    dim, count = ctypes.c_int32(0), ctypes.c_int64(0)
+    rc = lib.jvtpu_fvecs_info(str(path).encode(), ctypes.byref(dim), ctypes.byref(count))
+    if rc == _EBADMSG:
+        raise ValueError(f"corrupt fvecs file {path}")
+    if rc == _EINVAL:
+        raise ValueError(f"bad fvecs dim in {path}")
+    if rc != 0:
+        return None
+    n = int(count.value) if max_vectors is None else min(int(count.value), max_vectors)
+    if n == 0:
+        return np.zeros((0, 0), np.float32)
+    out = np.empty((n, int(dim.value)), np.float32)
+    rc = lib.jvtpu_fvecs_to_dense(
+        str(path).encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, os.cpu_count() or 4
+    )
+    if rc == _EBADMSG:
+        raise ValueError(f"corrupt fvecs file {path}")
+    return out if rc == 0 else None
+
+
+def pwrite_rows(path: str, base_offset: int, data: np.ndarray, start_row: int, n_threads: int = 8) -> bool:
+    """Positional parallel write of ``data``'s rows into a reserved extent
+    of ``path`` (row ``start_row`` at ``base_offset + start_row * row_bytes``);
+    False when the native library is unavailable or the write failed."""
+    lib = _load()
+    if lib is None:
+        return False
+    data = np.ascontiguousarray(data)
+    row_bytes = data.dtype.itemsize * int(np.prod(data.shape[1:], dtype=np.int64))
+    rc = lib.jvtpu_pwrite_rows(
+        str(path).encode(), base_offset, data.ctypes.data_as(ctypes.c_void_p), row_bytes, data.shape[0],
+        start_row, n_threads,
+    )
+    return rc == 0
 
 
 def gather_rows(src: np.ndarray, idx: np.ndarray, n_threads: int = 8, out: np.ndarray | None = None) -> np.ndarray:
