@@ -23,7 +23,8 @@ Phases, each printing one JSON line:
    rows), K4b (the same scatter on that table viewed 2-D, and on a
    ``[1,048,576, 64]`` float32 table) and K7 (slot scatter on the float32
    table, and 48-byte slots on the 2-D uint8 view) against their twins
-   (bit-exact); and K5 (PQ ADC) against ``adc_score_ordered`` (its own
+   (bit-exact), each with its device us and its host us a wrapper call,
+   and the check's seconds; and K5 (PQ ADC) against ``adc_score_ordered`` (its own
    summation order: bit-exact, ``torch.equal``) at every ``K5_SHAPES``
    shape, printing the wrapper's launch plan of each and, beside the
    event times, the kernel's device us with a cold L2 (256 MB written
@@ -648,7 +649,7 @@ def phase_build() -> None:
     sources = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, sources))
-    for load in (packed_adj._lib, scatter_rows._lib, scatter_rows._scatter_lib, adc._lib, adc16._lib):
+    for load in (packed_adj._lib, scatter_rows._lib, scatter_rows._scatter_entry, adc._lib, adc16._lib):
         load()
     emit({"phase": "kernel_build", "sources": sources, "seconds": time.time() - t0})
 
@@ -871,8 +872,10 @@ def _scatter_bytes(table: torch.Tensor, args: tuple) -> int:
 
 def _scatter_check(what: str, kernel, twin, table: torch.Tensor, args: tuple, library) -> dict:
     """One scatter kernel against its twin on copies of ``table``: exactness,
-    times (kernel, twin, the one PyTorch call of ``library(table)``) and
-    the bound from :func:`_scatter_bytes`."""
+    times (kernel, twin, the one PyTorch call of ``library(table)``; the
+    kernel's device us and host us a call), the bound from
+    :func:`_scatter_bytes` and the check's seconds."""
+    t0 = time.time()
     kt = table.clone()
     kernel(kt, *args)
     rt = table.clone()
@@ -889,11 +892,14 @@ def _scatter_check(what: str, kernel, twin, table: torch.Tensor, args: tuple, li
     ms = median_ms(lambda: kernel(kt, *args))
     plain_ms = median_ms(lambda: twin(rt, *args))
     library_ms = median_ms(lambda: library(rt))
+    dev_us = device_us(lambda: kernel(kt, *args))["device_us"]
+    host = host_us(lambda: kernel(kt, *args))
     del kt, rt
     return {"kernel": what, "table": list(table.shape), "dtype": str(table.dtype).replace("torch.", ""),
             "B": int(args[0].shape[0]), "payload_row_bytes": row_bytes, "landed": landed, "bit_exact": exact,
             "max_abs_err": err, "rows_changed": changed, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bytes": n_bytes, "bound_ms": bound_ms(n_bytes)}
+            "device_us": dev_us, "host_us": host, "bytes": n_bytes, "bound_ms": bound_ms(n_bytes),
+            "seconds": time.time() - t0}
 
 
 def index_copy(table: torch.Tensor, idx: torch.Tensor, payload: torch.Tensor):
@@ -953,12 +959,15 @@ def phase_scatter_check(rng: np.random.Generator) -> list[dict]:
         bad = [r for r in rows if not r["bit_exact"] or r["rows_changed"] == 0]
         if bad:
             raise SystemExit(f"{name} disagrees with its twin (or wrote nothing): {bad}")
-    return [{"name": name, "route": "cuda", "source": "jvector_tpu_torch/csrc/scatter_rows.cu",
+    return [{"name": name, "case": f"{row['dtype']} {row['table']}, {row['payload_row_bytes']}-byte items",
+             "route": "cuda", "source": "jvector_tpu_torch/csrc/scatter_rows.cu",
              "replaces": f"jvector_tpu/ops/pallas/scatter_rows.py:{line}",
              "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-             "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": row["library_ms"]}
+             "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": row["library_ms"],
+             "device_us": row["device_us"], "host_us": row["host_us"]}
             for name, line, row in (("scatter_rows3_inplace", 82, k4a), ("scatter_rows_inplace", 54, k4b_u8),
-                                    ("scatter_slots_inplace", 189, k7_f32))]
+                                    ("scatter_rows_inplace", 54, k4b_f32), ("scatter_slots_inplace", 189, k7_f32),
+                                    ("scatter_slots_inplace", 189, k7_u8))]
 
 
 def _k5_inputs(gen: torch.Generator, q: int, c: int, m: int, k: int):

@@ -13,7 +13,13 @@ parent, ``--rounds`` times over, printing every sample and the medians.
 ``packed_adj.cu`` with ``fused_update.cu``: K1, K3 and K2 device time
 with the launch floor and the host time per call.  ``adc.cu``: K5 at
 every ``chip_smoke.K5_SHAPES`` shape and the refine and BASELINE config 3
-shapes at Q = 2048 and 4096 (:func:`k5_profile`).
+shapes at Q = 2048 and 4096 (:func:`k5_profile`).  ``scatter_rows.cu``
+with its wrapper module ``scatter_rows.py`` (``git show
+REV:jvector_tpu_torch/ops/kernels/scatter_rows.py > DIR/scatter_rows.py``):
+K7, K4b and K4a at ``chip_smoke.py``'s five scatter cases through each
+revision's own wrapper, device us, CUDA-event ms and host us a call
+beside the library call's, the byte bound, the sector bound and the
+launch floor (:func:`compare_scatter`).
 
 ``--k5`` alone runs :func:`k5_profile` on the tree's K5: each shape's
 device us a call with a cold L2 (256 MB written before every call,
@@ -25,11 +31,13 @@ Without either, compiles ``jvector_tpu_torch/csrc/*.cu`` once more with
 ``-Xptxas -v`` and prints each kernel's register and spill lines, then
 times 20 calls of each wrapper at the 1M path shapes of ``chip_smoke.py``
 (K5 at its serve, build-search and centroid-scan shapes; K6 at its timed
-serve, micro and shared-table shapes; K4a, K4b and K7 at the 1M mips-96d
-build shapes of its scatter check) under ``torch.profiler`` and prints
+serve, micro and shared-table shapes; K4a, K4b and K7, one-element f32
+and 48-byte u8 slots, at the 1M mips-96d build shapes of its scatter
+check) under ``torch.profiler`` and prints
 the device time per call of each (``chip_smoke.device_us``: the sum over
-the kernels a call launches, with their names and counts per call), with
-its bound (bytes over 3.35 TB/s) beside it, and the launch floor,
+the kernels a call launches, with their names and counts per call) and
+its host time per call (``chip_smoke.host_us``), with its bound (bytes
+over 3.35 TB/s) beside it, and the launch floor,
 then the device time per call of the library calls that ``chip_smoke.py``
 times as yardsticks (``index_copy_``, ``index_put_``, gather + sum).
 ``chip_smoke.py``'s CUDA-event times include the wrapper's host-side
@@ -42,11 +50,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 
 import numpy as np
 import torch
@@ -189,10 +199,132 @@ def k5_profile(parent=None, rounds: int = 2) -> None:
     print(json.dumps({"launch_floor_us": chip_smoke.launch_floor_us()}), flush=True)
 
 
+class ParentBuild:
+    """Stands in for ``_build`` inside a parent's wrapper module, handing out
+    the parent's library as the parent's ``_build.load`` did: under a lock
+    on every call."""
+
+    check = staticmethod(_build.check)
+
+    def __init__(self, path: str):
+        self.lib, self.lock = ctypes.CDLL(path), threading.Lock()
+
+    def load(self, source: str, functions: dict) -> ctypes.CDLL:
+        with self.lock:
+            for name, argtypes in functions.items():
+                getattr(self.lib, name).argtypes = argtypes
+                getattr(self.lib, name).restype = ctypes.c_int
+            return self.lib
+
+
+def parent_scatter(src_dir: str, out_dir: str):
+    """The parent's wrapper module ``src_dir/scatter_rows.py``, loaded under
+    another name, its ``_build`` routed to ``src_dir/scatter_rows.cu``
+    built into ``out_dir``."""
+    out = os.path.join(out_dir, "parent_scatter_rows.so")
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, os.path.join(src_dir, "scatter_rows.cu")],
+                   check=True)
+    spec = importlib.util.spec_from_file_location("parent_scatter_rows", os.path.join(src_dir, "scatter_rows.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod._build = ParentBuild(out)
+    return mod
+
+
+def sector_bytes(table: torch.Tensor, args: tuple) -> int:
+    """A scatter's least traffic counted in the 32-byte sectors that HBM and
+    the L2 move: the index streams and the landed payload rows read once,
+    and each destination sector that a landed item touches written once,
+    and read first (filled) unless the landed items cover all 32 bytes of
+    it.  Items are distinct slots or rows (duplicates carry identical
+    images and count once), as in ``chip_smoke.py``'s cases."""
+    idx, payload = args[0], args[-1]
+    esize = table.element_size()
+    row_bytes, item = table[0].numel() * esize, payload[0].numel() * payload.element_size()
+    ok = (idx >= 0) & (idx < table.shape[0])
+    start = idx.long() * row_bytes
+    if len(args) == 3:
+        off = args[1].long() * esize
+        ok &= (off >= 0) & (off + item <= row_bytes)
+        start = start + off
+    start = torch.unique(start[ok])
+    end = start + item
+    first, last = start // 32, (end - 1) // 32
+    two = last > first
+    ids = torch.cat([first, last[two]])
+    covered = torch.cat([torch.minimum(end, (first + 1) * 32) - start, (end - last * 32)[two]])
+    sectors, inverse = torch.unique(ids, return_inverse=True)
+    per_sector = torch.zeros(sectors.numel(), dtype=torch.long, device=ids.device).index_add_(0, inverse, covered)
+    full = int((per_sector >= 32).sum()) + int((last - first - 1).clamp(min=0).sum())
+    partial = sectors.numel() - int((per_sector >= 32).sum())
+    streams = sum(x.numel() * x.element_size() for x in args[:-1])
+    return streams + start.numel() * item + full * 32 + partial * 64
+
+
+def scatter_cases(rng: np.random.Generator, dev) -> dict:
+    """``chip_smoke.py``'s five scatter cases: name -> (wrapper name, table,
+    args).  The two tables: the 1M mips-96d fused table ``[1M, 24, 128]``
+    u8 (and its 2-D view) and ``[1M, 64]`` f32."""
+    fused96, k4a_args = chip_smoke._scatter_rows_case(rng, dev, (24, 128), torch.uint8)
+    flat96 = fused96.view(fused96.shape[0], -1)
+    k4b_u8 = (k4a_args[0], k4a_args[1].view(k4a_args[1].shape[0], -1))
+    k7_u8 = chip_smoke._scatter_slots_case(rng, dev, flat96, 48)
+    w2, k4b_f32 = chip_smoke._scatter_rows_case(rng, dev, (64,), torch.float32)
+    k7_f32 = chip_smoke._scatter_slots_case(rng, dev, w2, 1)
+    return {"K7 f32 one-element slots [1M, 64]": ("scatter_slots_inplace", w2, k7_f32),
+            "K7 u8 48-byte slots [1M, 3072]": ("scatter_slots_inplace", flat96, k7_u8),
+            "K4b f32 [1M, 64]": ("scatter_rows_inplace", w2, k4b_f32),
+            "K4b u8 [1M, 3072]": ("scatter_rows_inplace", flat96, k4b_u8),
+            "K4a u8 [1M, 24, 128]": ("scatter_rows3_inplace", fused96, k4a_args)}
+
+
+def compare_scatter(parent, rounds: int) -> None:
+    """K7, K4b and K4a through the parent's wrapper module and the tree's in
+    turns at :func:`scatter_cases`: both bit-equal to the twin first, then
+    per version device us (``chip_smoke.device_us``), CUDA-event ms
+    (``chip_smoke.median_ms``) and host us a call (``chip_smoke.host_us``),
+    and the library call's event ms, device us and host us once a round."""
+    dev = torch.device("cuda")
+    floor = chip_smoke.launch_floor_us()
+    versions = {"parent": parent, "change": tsr}
+    for name, (fn_name, table, args) in scatter_cases(np.random.default_rng(4321), dev).items():
+        twin = tsr.scatter_slots_ref if len(args) == 3 else tsr.scatter_rows_ref
+        library = (chip_smoke.index_put if len(args) == 3 else chip_smoke.index_copy)(table, *args)
+        want = twin(table.clone(), *args)
+        copies = {v: getattr(m, fn_name)(table.clone(), *args) for v, m in versions.items()}
+        torch.cuda.synchronize()
+        row = {"case": name, "B": int(args[0].shape[0]), "item_bytes": args[-1][0].numel() * args[-1].element_size(),
+               "bit_equal_to_twin": {v: bool(torch.equal(t, want)) for v, t in copies.items()},
+               "bound_us": chip_smoke.bound_ms(chip_smoke._scatter_bytes(table, args)) * 1e3,
+               "sector_bound_us": chip_smoke.bound_ms(sector_bytes(table, args)) * 1e3, "launch_floor_us": floor}
+        del want
+        samples = {v: {"device_us": [], "ms": [], "host_us": []} for v in versions}
+        lib = {"device_us": [], "ms": [], "host_us": []}
+        for _ in range(rounds):
+            for v in ("parent", "change", "change", "parent"):
+                call = (lambda f=getattr(versions[v], fn_name), t=copies[v]: f(t, *args))
+                samples[v]["device_us"].append(chip_smoke.device_us(call)["device_us"])
+                samples[v]["ms"].append(chip_smoke.median_ms(call))
+                samples[v]["host_us"].append(chip_smoke.host_us(call))
+            lib["device_us"].append(chip_smoke.device_us(lambda: library(copies["change"]))["device_us"])
+            lib["ms"].append(chip_smoke.median_ms(lambda: library(copies["change"])))
+            lib["host_us"].append(chip_smoke.host_us(lambda: library(copies["change"])))
+        med = lambda xs: float(np.median([x for x in xs if x is not None])) if any(x is not None for x in xs) else None  # noqa: E731,E501
+        row["median"] = {v: {k: med(xs) for k, xs in m.items()} for v, m in samples.items()}
+        row["library_median"] = {k: med(xs) for k, xs in lib.items()}
+        row["samples"] = samples
+        print(json.dumps(row), flush=True)
+        del copies, table, args
+        torch.cuda.empty_cache()
+
+
 def compare_parent(src_dir: str, rounds: int) -> None:
     if os.path.exists(os.path.join(src_dir, "adc.cu")):
         with tempfile.TemporaryDirectory() as tmp:
             k5_profile(parent_k5(src_dir, tmp), rounds)
+    if os.path.exists(os.path.join(src_dir, "scatter_rows.cu")):
+        with tempfile.TemporaryDirectory() as tmp:
+            compare_scatter(parent_scatter(src_dir, tmp), rounds)
     if not os.path.exists(os.path.join(src_dir, "packed_adj.cu")):
         return
     dev = torch.device("cuda")
@@ -238,8 +370,8 @@ def compare_parent(src_dir: str, rounds: int) -> None:
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--parent", help="directory with another revision's adc.cu and / or packed_adj.cu and "
-                                     "fused_update.cu")
+    p.add_argument("--parent", help="directory with another revision's adc.cu, packed_adj.cu and "
+                                     "fused_update.cu, and / or scatter_rows.cu with scatter_rows.py")
     p.add_argument("--k5", action="store_true", help="K5's cold and warm times at every shape, no parent")
     p.add_argument("--rounds", type=int, default=3, help="parent, change, change, parent rounds (with --parent)")
     args = p.parse_args()
@@ -273,6 +405,7 @@ def main() -> None:
     fused96, k4a_args = chip_smoke._scatter_rows_case(rng, dev, (24, 128), torch.uint8)
     flat96 = fused96.view(fused96.shape[0], -1)
     k4b_args = (k4a_args[0], k4a_args[1].view(k4a_args[1].shape[0], -1))
+    k7_u8_args = chip_smoke._scatter_slots_case(rng, dev, flat96, 48)
     w2, k4b_f32_args = chip_smoke._scatter_rows_case(rng, dev, (64,), torch.float32)
     k7_args = chip_smoke._scatter_slots_case(rng, dev, w2, 1)
     calls += [
@@ -280,11 +413,13 @@ def main() -> None:
         ("K4b scatter_rows_inplace u8", lambda: scatter_rows_inplace(flat96, *k4b_args)),
         ("K4b scatter_rows_inplace f32", lambda: scatter_rows_inplace(w2, *k4b_f32_args)),
         ("K7 scatter_slots_inplace f32", lambda: scatter_slots_inplace(w2, *k7_args)),
+        ("K7 scatter_slots_inplace u8 48B", lambda: scatter_slots_inplace(flat96, *k7_u8_args)),
     ]
     for name, (dst, args) in {"K4a scatter_rows3_inplace": (fused96, k4a_args),
                               "K4b scatter_rows_inplace u8": (flat96, k4b_args),
                               "K4b scatter_rows_inplace f32": (w2, k4b_f32_args),
-                              "K7 scatter_slots_inplace f32": (w2, k7_args)}.items():
+                              "K7 scatter_slots_inplace f32": (w2, k7_args),
+                              "K7 scatter_slots_inplace u8 48B": (flat96, k7_u8_args)}.items():
         bounds[name] = chip_smoke.bound_ms(chip_smoke._scatter_bytes(dst, args)) * 1e3
     for shape in ("serve", "build_search", "centroid_scan"):
         luts, codes = chip_smoke._k5_inputs(gen, *chip_smoke.K5_SHAPES[shape])
@@ -300,6 +435,7 @@ def main() -> None:
     calls += [
         ("library index_copy_ (K4b f32)", lambda f=chip_smoke.index_copy(w2, *k4b_f32_args): f(w2)),
         ("library index_put_ (K7 f32)", lambda f=chip_smoke.index_put(w2, *k7_args): f(w2)),
+        ("library index_put_ (K7 u8 48B)", lambda f=chip_smoke.index_put(flat96, *k7_u8_args): f(flat96)),
         ("library index_copy_ (K4a)", lambda f=chip_smoke.index_copy(fused96, *k4a_args): f(fused96)),
     ]
     luts, codes = chip_smoke._k5_inputs(gen, *chip_smoke.K5_SHAPES["serve"])
@@ -309,7 +445,8 @@ def main() -> None:
     for name, fn in calls:
         dev_t = chip_smoke.device_us(fn)  # a window with no device time reports null, not 0
         print(json.dumps({"kernel": name, "bound_us": bounds.get(name), "device_us_per_call": dev_t["device_us"],
-                          "kernels_per_call": dev_t["kernels_per_call"]}), flush=True)
+                          "kernels_per_call": dev_t["kernels_per_call"], "host_us": chip_smoke.host_us(fn)}),
+              flush=True)
     print(json.dumps({"launch_floor_us": chip_smoke.launch_floor_us()}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)

@@ -73,8 +73,12 @@ def load(source: str, functions: dict[str, list]) -> ctypes.CDLL:
     """Build (once per process) and bind ``csrc/<source>``.
 
     ``functions`` maps each exported C function to its ``argtypes``; every
-    function returns a ``cudaError_t`` as ``int``.
+    function returns a ``cudaError_t`` as ``int``.  The first call builds
+    under the lock; later calls are one dict read, without it.
     """
+    lib = _libs.get(source)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(source)
         if lib is None:

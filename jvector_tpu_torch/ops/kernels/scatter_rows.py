@@ -24,7 +24,11 @@ through ``csrc/scatter_rows.cu`` for CUDA tensors, and through the twins
 :func:`scatter_rows_ref` / :func:`scatter_slots_ref` for CPU tensors.
 Rows outside ``[0, N)`` drop, as does a slot that does not lie inside its
 row.  Duplicate rows carry identical images (the kernel's copies land in
-no fixed order, as the TPU kernel's DMAs do).
+no fixed order, as the TPU kernel's DMAs do).  Their launch costs the
+host little: one function checks the tensors, sizes the lane groups and
+the grid, and passes the launch to the C entry, bound once and kept
+(:func:`_scatter_entry`), with the device index and the raw stream
+handle; the entry switches the device itself where it must.
 """
 
 from __future__ import annotations
@@ -41,21 +45,28 @@ _ARGTYPES += [ctypes.c_void_p] * 2 + [ctypes.c_int]
 _ARGTYPES += [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int]
 _ARGTYPES += [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
 
-
-_SCATTER_FUNCTIONS = {
-    "jv_scatter_rows": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p],
-    "jv_scatter_slots": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
-}
+# jv_scatter(table, n, row_bytes, idx, off, itemsize, item_bytes, payload, b,
+#            lanes, blocks, threads, device, stream)
+_SCATTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+_SCATTER_ARGTYPES += [ctypes.c_longlong] * 2 + [ctypes.c_void_p] + [ctypes.c_longlong] * 4
+_SCATTER_ARGTYPES += [ctypes.c_int, ctypes.c_void_p]
+_scatter_fn = None  # jv_scatter once bound (_scatter_entry)
+_I32 = torch.int32
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # device index -> cudaStream_t (CUDA builds)
+THREADS = 128  # threads a block of the scatter kernels
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("fused_update.cu", {"jv_fused_update": _ARGTYPES})
 
 
-def _scatter_lib() -> ctypes.CDLL:
-    return _build.load("scatter_rows.cu", _SCATTER_FUNCTIONS)
+def _scatter_entry():
+    """K4a's, K4b's and K7's C entry ``jv_scatter``: built and bound at the
+    first call, then kept."""
+    global _scatter_fn
+    if _scatter_fn is None:
+        _scatter_fn = _build.load("scatter_rows.cu", {"jv_scatter": _SCATTER_ARGTYPES}).jv_scatter
+    return _scatter_fn
 
 
 def fused_update_ref(table, wave_rows, wave_img, patch_rows, patch_slots, patch_src, er_rows, er_img):
@@ -152,38 +163,51 @@ def scatter_slots_ref(table: torch.Tensor, idx: torch.Tensor, off: torch.Tensor,
     return table.index_put_((rows, cols), payload[ok])
 
 
-def _check_scatter(what: str, table: torch.Tensor, payload: torch.Tensor, payload_shape: tuple, *ints) -> bool:
-    """Shape / dtype / device checks shared by K4a, K4b and K7; True when the
-    call goes to the kernel (CUDA), False for the twin (CPU)."""
-    b = payload.shape[0]
-    if payload.dtype != table.dtype or tuple(payload.shape) != payload_shape:
+def _scatter(what: str, table: torch.Tensor, payload: torch.Tensor, payload_shape: tuple, idx: torch.Tensor,
+             off: torch.Tensor | None, row_bytes: int, itemsize: int, item_bytes: int) -> bool:
+    """K4a's, K4b's and K7's checks, then their launch.
+
+    ``idx`` holds ``payload_shape[0]`` rows; ``off`` is K7's offsets (None:
+    whole rows).  Returns False for CPU tensors, which the caller hands to
+    the twin; launches one kernel on the tensors' card when there is an
+    item to write.  Any other device, or a tensor the kernel does not take,
+    raises.  The common case reads each attribute once, in one condition a
+    check, and passes the launch to the bound C entry."""
+    if payload.dtype != table.dtype or payload.shape != payload_shape:
         raise ValueError(f"{what}: payload must be {payload_shape} {table.dtype}, "
                          f"got {tuple(payload.shape)} {payload.dtype}")
-    for x in ints:
-        if x.dtype != torch.int32 or tuple(x.shape) != (b,):
-            raise ValueError(f"{what}: row indices and offsets must be int32 [{b}], got {x.dtype} {tuple(x.shape)}")
-    devices = {t.device for t in (table, payload, *ints)}
-    if len(devices) != 1:
-        raise ValueError(f"{what}: tensors on several devices {sorted(map(str, devices))}")
-    if table.device.type == "cpu":
-        return False
-    if table.device.type != "cuda":
+    b = payload_shape[0]
+    if idx.dtype != _I32 or idx.dim() != 1 or (off is not None and (off.dtype != _I32 or off.shape != (b,))):
+        x = idx if idx.dtype != _I32 or idx.dim() != 1 else off
+        raise ValueError(f"{what}: row indices and offsets must be int32 [{b}], got {x.dtype} {tuple(x.shape)}")
+    d = table.get_device()  # -1 off the card
+    if d < 0 or payload.get_device() != d or idx.get_device() != d or (off is not None and off.get_device() != d):
+        ints = (idx,) if off is None else (idx, off)
+        devices = {t.device for t in (table, payload, *ints)}
+        if len(devices) != 1:
+            raise ValueError(f"{what}: tensors on several devices {sorted(map(str, devices))}")
+        if table.device.type == "cpu":
+            return False
         raise ValueError(f"{what}: unsupported device {table.device}")
-    for t in (table, payload, *ints):
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: every tensor must be contiguous")
+    if not (table.is_contiguous() and payload.is_contiguous() and idx.is_contiguous()
+            and (off is None or off.is_contiguous())):
+        raise ValueError(f"{what}: every tensor must be contiguous")
+    if b:
+        # The plan: the widest vector (16, 4 or 1 bytes) that the item's bytes
+        # and every address and stride the host knows allow, and the least
+        # power-of-two lane group (at most 32) that covers the item's vectors
+        # at that width.  A K7 slot's offset is known only on the device,
+        # where a group whose item turns out misaligned copies narrower.
+        t, p = table.data_ptr(), payload.data_ptr()
+        a = item_bytes | t | p | row_bytes
+        vectors = item_bytes >> 4 if a & 15 == 0 else item_bytes >> 2 if a & 3 == 0 else item_bytes
+        lanes = 1 if vectors <= 1 else 32 if vectors >= 32 else 1 << (vectors - 1).bit_length()
+        blocks = (b * lanes + THREADS - 1) // THREADS
+        err = (_scatter_fn or _scatter_entry())(
+            t, table.shape[0], row_bytes, idx.data_ptr(), None if off is None else off.data_ptr(), itemsize,
+            item_bytes, p, b, lanes, blocks, THREADS, d, _raw_stream(d))
+        _build.check(err, what)
     return True
-
-
-def _launch_rows(what: str, table: torch.Tensor, idx: torch.Tensor, payload: torch.Tensor) -> None:
-    n, b = table.shape[0], idx.shape[0]
-    lib = _scatter_lib()
-    with torch.cuda.device(table.device):
-        err = lib.jv_scatter_rows(
-            table.data_ptr(), n, table.stride(0) * table.element_size(), idx.data_ptr(), payload.data_ptr(), b,
-            torch.cuda.current_stream(table.device).cuda_stream,
-        )
-    _build.check(err, what)
 
 
 def scatter_rows3_inplace(
@@ -194,12 +218,13 @@ def scatter_rows3_inplace(
     """K4a: ``table[idx[i]] = payload[i]`` on a rank-3 whole-tile table, in
     place; returns the table.  CUDA tensors launch the kernel (and count
     one launch when B > 0); CPU tensors run :func:`scatter_rows_ref`."""
-    if table.dim() != 3 or table.shape[2] != 128:
-        raise ValueError(f"scatter_rows3_inplace: table must be [N, T, 128], got {tuple(table.shape)}")
-    if not _check_scatter("scatter_rows3_inplace", table, payload, (idx.shape[0], *table.shape[1:]), idx):
+    shape, b = table.shape, idx.shape[0]
+    if len(shape) != 3 or shape[2] != 128:
+        raise ValueError(f"scatter_rows3_inplace: table must be [N, T, 128], got {tuple(shape)}")
+    row_bytes = shape[1] * 128 * table.element_size()
+    if not _scatter("scatter_rows3_inplace", table, payload, (b, shape[1], 128), idx, None, row_bytes, 1, row_bytes):
         return scatter_rows_ref(table, idx, payload)
-    if idx.shape[0]:
-        _launch_rows("scatter_rows3_inplace", table, idx, payload)
+    if b:
         scatter_rows3_inplace.launches += 1
     return table
 
@@ -212,12 +237,13 @@ def scatter_rows_inplace(
     """K4b: ``table[idx[i]] = payload[i]`` on a 2-D table of any dtype, in
     place; returns the table.  CUDA tensors launch the kernel (and count
     one launch when B > 0); CPU tensors run :func:`scatter_rows_ref`."""
-    if table.dim() != 2:
-        raise ValueError(f"scatter_rows_inplace: table must be [N, K], got {tuple(table.shape)}")
-    if not _check_scatter("scatter_rows_inplace", table, payload, (idx.shape[0], table.shape[1]), idx):
+    shape, b = table.shape, idx.shape[0]
+    if len(shape) != 2:
+        raise ValueError(f"scatter_rows_inplace: table must be [N, K], got {tuple(shape)}")
+    row_bytes = shape[1] * table.element_size()
+    if not _scatter("scatter_rows_inplace", table, payload, (b, shape[1]), idx, None, row_bytes, 1, row_bytes):
         return scatter_rows_ref(table, idx, payload)
-    if idx.shape[0]:
-        _launch_rows("scatter_rows_inplace", table, idx, payload)
+    if b:
         scatter_rows_inplace.launches += 1
     return table
 
@@ -231,21 +257,16 @@ def scatter_slots_inplace(
     """K7: ``table[idx[i], off[i]:off[i]+Kp] = payload[i]``, in place;
     returns the table.  CUDA tensors launch the kernel (and count one
     launch when B > 0); CPU tensors run :func:`scatter_slots_ref`."""
-    if table.dim() != 2 or payload.dim() != 2 or payload.shape[1] > table.shape[1]:
+    shape, p_shape = table.shape, payload.shape
+    if len(shape) != 2 or len(p_shape) != 2 or p_shape[1] > shape[1]:
         raise ValueError(f"scatter_slots_inplace: need table [N, K] and payload [B, Kp <= K], "
-                         f"got {tuple(table.shape)} and {tuple(payload.shape)}")
-    b, kp = payload.shape
-    if not _check_scatter("scatter_slots_inplace", table, payload, (idx.shape[0], kp), idx, off):
+                         f"got {tuple(shape)} and {tuple(p_shape)}")
+    b, kp = p_shape
+    item = table.element_size()
+    if not _scatter("scatter_slots_inplace", table, payload, (idx.shape[0], kp), idx, off, shape[1] * item, item,
+                    kp * item):
         return scatter_slots_ref(table, idx, off, payload)
     if b:
-        item = table.element_size()
-        lib = _scatter_lib()
-        with torch.cuda.device(table.device):
-            err = lib.jv_scatter_slots(
-                table.data_ptr(), table.shape[0], table.shape[1] * item, idx.data_ptr(), off.data_ptr(),
-                item, kp * item, payload.data_ptr(), b, torch.cuda.current_stream(table.device).cuda_stream,
-            )
-        _build.check(err, "scatter_slots_inplace")
         scatter_slots_inplace.launches += 1
     return table
 

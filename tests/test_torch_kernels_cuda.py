@@ -606,11 +606,15 @@ def test_k4a_kernel_matches_twin_on_card(cuda_device, shape, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "shape, dtype",
-    [((700, 64), np.uint8), ((700, 45), np.uint8), ((700, 33), np.int32), ((700, 40), np.float32)],
-    ids=["u8_16B_rows", "u8_odd_rows", "i32_4B_rows", "f32_16B_rows"],
+    [((700, 64), np.uint8), ((700, 45), np.uint8), ((700, 33), np.int32), ((700, 40), np.float32),
+     ((700, 1), np.float32), ((700, 16), np.uint8), ((700, 64), np.float32), ((700, 3072), np.uint8)],
+    ids=["u8_16B_rows", "u8_odd_rows", "i32_4B_rows", "f32_16B_rows",
+         "rows_4B_one_lane", "rows_16B_one_lane", "rows_256B_16_lanes", "rows_3072B_32_lanes"],
 )
 def test_k4b_kernel_matches_twin_on_card(cuda_device, shape, dtype):
-    """Each copy width: 16-byte vectors, single bytes, 4-byte words."""
+    """Each copy width (16-byte vectors, single bytes, 4-byte words) and each
+    lane-group size from 1 to 32; B = 257 rows, so a lane group ends
+    mid-warp and the last warp is partial."""
     table, idx, payload = _scatter_case(12, shape, 257, dtype)
     args = (_t(idx, cuda_device), _t(payload, cuda_device))
     before = tsr.scatter_rows_inplace.launches
@@ -624,17 +628,25 @@ def test_k4b_kernel_matches_twin_on_card(cuda_device, shape, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "shape, kp, dtype",
-    [((600, 64), 16, np.float32), ((600, 64), 5, np.float32), ((600, 45), 7, np.uint8)],
-    ids=["f32_aligned_slots", "f32_word_slots", "u8_byte_slots"],
+    [((600, 64), 16, np.float32), ((600, 64), 5, np.float32), ((600, 45), 7, np.uint8),
+     ((600, 96), 1, np.float32), ((600, 96), 3, np.float32), ((600, 96), 12, np.float32),
+     ((600, 96), 64, np.float32), ((600, 300), 4, np.uint8), ((600, 300), 12, np.uint8),
+     ((600, 300), 48, np.uint8), ((600, 300), 256, np.uint8)],
+    ids=["f32_aligned_slots", "f32_word_slots", "u8_byte_slots", "f32_4B_slots", "f32_12B_slots", "f32_48B_slots",
+         "f32_256B_slots", "u8_4B_slots", "u8_12B_slots", "u8_48B_slots", "u8_256B_slots"],
 )
 def test_k7_kernel_matches_twin_on_card(cuda_device, shape, kp, dtype):
-    """Slots at every offset (some leave their row and drop whole)."""
+    """Slots at every offset, so most are misaligned and some leave their row
+    and drop whole; rows -1 and N drop; one duplicate slot carries an
+    identical image.  B = 203 slots: no lane-group size fills the last warp."""
+    b = 203
     table = _scatter_case(13, shape, 8, dtype)[0]
-    payload = _scatter_case(14, (200, kp), 8, dtype)[0]
+    payload = _scatter_case(14, (b, kp), 8, dtype)[0]
     rng = np.random.default_rng(15)
-    idx = rng.choice(shape[0], 200, replace=False).astype(np.int32)  # unique rows: slots may overlap
+    idx = rng.choice(shape[0], b, replace=False).astype(np.int32)  # unique rows: slots may overlap
     idx[1], idx[5] = -1, shape[0]
     off = rng.integers(-2, shape[1] - kp + 3, idx.size).astype(np.int32)
+    idx[7], off[3], off[7], payload[7] = idx[3], 1, 1, payload[3]
     args = (_t(idx, cuda_device), _t(off, cuda_device), _t(payload, cuda_device))
     before = tsr.scatter_slots_inplace.launches
     got = tsr.scatter_slots_inplace(_t(table, cuda_device), *args)

@@ -9,6 +9,8 @@ may hold either (``tests/test_scatter_rows.py``); rows written twice with
 identical images, the builder's contract, must match exactly.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,12 +18,14 @@ import torch
 
 from jvector_tpu.ops.pallas import scatter_rows as js
 from jvector_tpu_torch.ops.kernels import (
+    _build,
     scatter_rows3_inplace,
     scatter_rows_inplace,
     scatter_rows_ref,
     scatter_slots_inplace,
     scatter_slots_ref,
 )
+from jvector_tpu_torch.ops.kernels import scatter_rows as tsr
 
 
 def _t(x):
@@ -140,3 +144,100 @@ def test_scatter_wrappers_refuse_bad_inputs(call):
             scatter_slots_inplace(t2, i, i, torch.zeros((2, 9)))
         else:
             scatter_rows_inplace(t2.to("meta"), i.to("meta"), torch.zeros((2, 8), device="meta"))
+
+
+def _on_card_zero(*tensors):
+    """CPU tensors that report card 0: each wrapper then takes its launch
+    path (checks, plan, the C entry's arguments) as on a card."""
+    for t in tensors:
+        t.get_device = lambda: 0
+    return tensors
+
+
+@pytest.mark.parametrize(
+    "kernel, row, dtype, kp, shift, b, lanes",
+    [
+        ("k7", 64, torch.float32, 1, 0, 40, 1),  # one-element f32 slots: one 4-byte word
+        ("k7", 3072, torch.uint8, 48, 0, 40, 4),  # 48-byte u8 slots: three 16-byte vectors
+        ("k7", 3072, torch.uint8, 48, 4, 40, 16),  # the payload 4 bytes off: twelve words
+        ("k7", 3072, torch.uint8, 48, 1, 40, 32),  # 1 byte off: 48 bytes, capped at 32 lanes
+        ("k7", 96, torch.float32, 3, 0, 203, 4),  # 12-byte slots: three words
+        ("k7", 45, torch.uint8, 7, 0, 203, 8),  # 7-byte slots
+        ("k4b", 64, torch.float32, None, 0, 257, 16),  # 256-byte rows: sixteen vectors
+        ("k4b", 64, torch.float32, None, 1, 257, 32),  # the payload one float (4 bytes) off: 64 words
+        ("k4b", 1, torch.float32, None, 0, 257, 1),
+        ("k4b", 16, torch.uint8, None, 0, 257, 1),  # one 16-byte vector
+        ("k4b", 45, torch.uint8, None, 0, 257, 32),
+        ("k4a", 24 * 128, torch.uint8, None, 0, 300, 32),  # 3,072-byte rows: one warp a row
+    ],
+)
+def test_scatter_plan_sizes_lane_groups_to_the_item(monkeypatch, kernel, row, dtype, kp, shift, b, lanes):
+    """The host plan, read from the arguments each wrapper hands the C
+    entry: the widest vector (16, 4 or 1 bytes) that the item's bytes and
+    the host-known addresses allow, the least power-of-two lane group that
+    covers the item's vectors (at most 32), a grid of ``THREADS``-thread
+    blocks that covers B items with no whole block to spare, and the
+    tensors, device and stream the launch goes to."""
+    sent = []
+    monkeypatch.setattr(tsr, "_scatter_fn", None)  # bound anew through the stand-in below
+    monkeypatch.setattr(_build, "load", lambda *a: SimpleNamespace(jv_scatter=lambda *args: sent.append(args) or 0))
+    monkeypatch.setattr(tsr, "_raw_stream", lambda d: 0xC0FFEE)
+    n = 50
+    table = torch.zeros((n, row // 128, 128) if kernel == "k4a" else (n, row), dtype=dtype)
+    width = kp if kernel == "k7" else row
+    buf = torch.zeros(b * width + shift, dtype=dtype)
+    payload = buf[shift:].view(b, *((kp,) if kernel == "k7" else table.shape[1:]))  # `shift` elements off
+    idx = torch.arange(b, dtype=torch.int32) % n
+    off = torch.zeros(b, dtype=torch.int32)
+    call = {"k7": tsr.scatter_slots_inplace, "k4b": tsr.scatter_rows_inplace, "k4a": tsr.scatter_rows3_inplace}[kernel]
+    args = _on_card_zero(table, idx, off, payload) if kernel == "k7" else _on_card_zero(table, idx, payload)
+    monkeypatch.setattr(call, "launches", 0)  # restored after the test: no kernel ran
+    assert call(*args) is table
+    assert call.launches == 1 and len(sent) == 1
+    item = width * table.element_size()
+    row_bytes = row * table.element_size()
+    got = dict(zip(("table", "n", "row_bytes", "idx", "off", "itemsize", "item_bytes", "payload", "b", "lanes",
+                    "blocks", "threads", "device", "stream"), sent[0]))
+    assert got == {"table": table.data_ptr(), "n": n, "row_bytes": row_bytes, "idx": idx.data_ptr(),
+                   "off": off.data_ptr() if kernel == "k7" else None,
+                   "itemsize": table.element_size() if kernel == "k7" else 1, "item_bytes": item,
+                   "payload": payload.data_ptr(), "b": b, "lanes": lanes, "blocks": got["blocks"],
+                   "threads": tsr.THREADS, "device": 0, "stream": 0xC0FFEE}
+    assert len(sent[0]) == len(tsr._SCATTER_ARGTYPES)
+    assert tsr.THREADS % 32 == 0 and 32 % lanes == 0
+    assert got["blocks"] * tsr.THREADS // lanes >= b > (got["blocks"] - 1) * tsr.THREADS // lanes
+
+
+@pytest.mark.parametrize("kernel", ["k4a", "k4b", "k7"])
+def test_cpu_tensors_never_reach_the_kernel_build(monkeypatch, kernel):
+    """A CPU tensor runs the twin without building or binding the CUDA
+    library: with ``_build.build``, ``_build.load`` and the bound C entry
+    made to raise, the wrappers still give the Pallas kernels'
+    interpret-mode results."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU call reached the CUDA build or launcher")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(tsr, "_scatter_fn", refuse)
+    rng = np.random.default_rng(3)
+    if kernel == "k7":
+        table = rng.normal(size=(40, 96)).astype(np.float32)
+        idx = rng.choice(40, 21, replace=False).astype(np.int32)
+        idx[[1, 5]] = [-1, 40]
+        off = rng.integers(0, 96 - 12 + 1, 21).astype(np.int32)  # in the row: the TPU kernel has no drop case
+        payload = rng.normal(size=(21, 12)).astype(np.float32)
+        want = js.scatter_slots_inplace(*(jnp.asarray(x) for x in (table, idx, off, payload)), interpret=True)
+        got = scatter_slots_inplace(_t(table), _t(idx), _t(off), _t(payload))
+    else:
+        shape = (40, 24, 128) if kernel == "k4a" else (40, 64)
+        table = _random(rng, shape, np.uint8 if kernel == "k4a" else np.float32)
+        idx = rng.choice(40, 17, replace=False).astype(np.int32)
+        idx[[1, 5]] = [-1, 40]
+        payload = _random(rng, (17, *shape[1:]), table.dtype.type)
+        jax_fn, fn = ((js.scatter_rows3_inplace, scatter_rows3_inplace) if kernel == "k4a"
+                      else (js.scatter_rows_inplace, scatter_rows_inplace))
+        want = jax_fn(jnp.asarray(table), jnp.asarray(idx), jnp.asarray(payload), interpret=True)
+        got = fn(_t(table), _t(idx), _t(payload))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(got.numpy(), table)
