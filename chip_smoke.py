@@ -30,10 +30,16 @@ Phases, each printing one JSON line:
    event times, the kernel's device us with a cold L2 (256 MB written
    before each call), a clean-cold one (written, then read) and a warm
    one, and its share of the byte bound; and K6 (LUT16
-   ADC) against its twin at the flagship and 1M mips-96d serve shapes, the
-   micro's, the shared-table cosine norm and an unaligned shape
-   (``torch.allclose(rtol=1e-5, atol=1e-4)``: only the order of the
-   float32 sum differs); each with the median time of 20 runs from CUDA events,
+   ADC) against ``adc16_ordered`` (the Pallas kernel's summation order:
+   bit-exact, ``torch.equal``) and within ``torch.allclose(rtol=1e-5,
+   atol=1e-4)`` of ``adc16_ref`` (the CPU paths' twin, another order) at
+   every ``K6_SHAPES`` shape (the LUT16 serves' waves and entry scores,
+   the micro's, the shared-table cosine norm, an unaligned shape), printing
+   each shape's launch plan, its device us (back to back) and host us a
+   wrapper call and its share of the sector bound (the 32-byte table
+   sectors its gathers touch, about half of each table at the entry
+   scores' C = 1; the whole-table bound beside it), its plain version
+   ``adc16_ref``; each with the median time of 20 runs from CUDA events,
    beside its bound (bytes over 3.35 TB/s) and the PyTorch call that
    computes the same function, where one does (K4a / K4b: ``index_copy_``,
    K7: ``index_put_``, K5: gather + sum, K6: a gather per nibble + sum);
@@ -58,7 +64,8 @@ Phases, each printing one JSON line:
    n on this corpus, ``experiments/torch_lut16_cpu.py``).
    Fails if no beam <= 200 reaches recall@10 0.95 on mips-96d, if K4a's
    launches over that build differ from the number of waves or K1 or K2
-   launched there, if K6 did not launch in the LUT16 serve, or if the
+   launched there, if K6 did not launch in the LUT16 serve or launched
+   at a shape that no ``K6_SHAPES`` entry checks, or if the
    adversarial recall is more than 0.03 from the JAX figure;
 5. LTM path (``min(--n, 200,000)``): the larger-than-memory
    stream build ``build_on_disk_ltm(compression="sq4",
@@ -96,7 +103,8 @@ Phases, each printing one JSON line:
    Fails if the real wave's tables differ, if recall@10 at beam 100 is
    below 0.95 (SQ4 or LUT16), if K1's or K2's launch count over the build
    differs from the number of build waves, or if K6 did not launch in the
-   LUT16 serve.  Then, on the same graph, corpus and ground truth, the
+   LUT16 serve or launched at a shape that no ``K6_SHAPES`` entry checks.
+   Then, on the same graph, corpus and ground truth, the
    **lifecycle** (``"phase": "lifecycle"``, each step's seconds and the
    kernels it launched): (1) ``mark_deleted`` on a tenth of the nodes
    (20,000 at 200k, a sorted draw from ``default_rng(11)``), searched at
@@ -167,9 +175,10 @@ Phases, each printing one JSON line:
 9. micro: ``jvector_tpu_torch.bench.micro.run_micro()`` at its defaults
    (n = 100,000, d = 128, 1024 queries, waves of 256), its eight rows and
    the launches over them, then its compaction row (``run_compact_micro``
-   at its defaults: two SQ4 segments of 25,000 at d = 64 stream-built,
-   ``compact_on_disk`` timed; its seconds and launches apart); fails if K5
-   or K6 did not launch;
+   at ``n`` = :data:`MICRO_COMPACT_N`: two SQ4 segments of 12,500 at d = 64
+   stream-built, ``compact_on_disk`` timed; its seconds and launches
+   apart); fails if K5 or K6 did not launch, or K6 at a shape that no
+   ``K6_SHAPES`` entry checks;
 10. search API, one ``"phase": "search_api"`` line per graph, each part
    run before its graph is freed (ground truth exact, on the card; recall
    over 1024 queries, seconds over one 4096-query wave): in phase 5, the
@@ -183,7 +192,9 @@ Phases, each printing one JSON line:
    queries of the exact 10th-best score (exact first pass; fails on a
    result below it), resume of page 2 with and without the state (fails
    on a repeated page-1 id) and multi-index search over four SQ4 shards of
-   50,000 built from the corpus, stacked and sequential (floor 0.90); in
+   25,000 built from the corpus's first :data:`MULTI_N` vectors, stacked
+   and sequential, recall against the exact top-10 over those vectors
+   (floor 0.90); in
    phase 7, ``refine_graph`` and ``rescore_graph`` over the 200k base
    layer in chunks of 1024 (fails if recall@10 at beam 100 falls by more
    than the JAX package's own refine lowers it plus 0.01, at n = 200,000,
@@ -368,7 +379,8 @@ SELECTIVITIES = (0.10, 0.01, 0.001)
 FILTER_FLOOR = 0.90
 FILTER_EXPAND = 4  # pops a step in the filtered searches (the host serve's expand)
 API_BEAM = 100
-MULTI_SHARDS = 4
+MULTI_SHARDS, MULTI_N = 4, 100_000  # the multi-index: four shards over the corpus's first MULTI_N vectors
+MICRO_COMPACT_N = 25_000  # the micro's compaction row: two segments of 12,500 (run_compact_micro's default is 2 x 25k)
 REFINE_SLACK = 0.01
 # recall@10 at beam 100 of the JAX package's default-config graph before and
 # after refine_graph (its PQ provider, chunks of 1024) over the first 1024 of
@@ -649,7 +661,7 @@ def phase_build() -> None:
     sources = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, sources))
-    for load in (packed_adj._lib, scatter_rows._lib, scatter_rows._scatter_entry, adc._lib, adc16._lib):
+    for load in (packed_adj._lib, scatter_rows._lib, scatter_rows._scatter_entry, adc._lib, adc16._entry):
         load()
     emit({"phase": "kernel_build", "sources": sources, "seconds": time.time() - t0})
 
@@ -1044,14 +1056,23 @@ K5_SHAPES = {
 }
 
 
-# K6 shapes (Q, MP, C, shared table): the flagship 128-d serve (MP = 32, one
-# expansion of R = 64 slots per 4096-query wave), the 1M mips-96d serve
-# (MP = 24), the micro's lut16_adc_score (256 queries x 64 candidates), the
-# cosine norm (one table of squared centroid norms, query stride 0) and an
-# unaligned shape
+# K6 shapes (Q, MP, C, shared table), as the paths launch them
+# (``k6_launches_by_shape`` of the LUT16 serves): the flagship 128-d serve
+# (MP = 32, one expansion of R = 64 slots) in its 4096-query QPS waves and
+# its 1024-query recall waves, and each wave's entry score (C = 1); the
+# same for the mips-96d serve (MP = 24; its names keep the 1M corpus the
+# shape was first measured at); the micro's lut16_adc_score (256 queries
+# x 64 candidates); the cosine norm (one table of squared centroid norms,
+# query stride 0) and an unaligned shape
 K6_SHAPES = {
     "serve_200k": (4096, 32, 64, False),
+    "serve_200k_recall": (1024, 32, 64, False),
+    "serve_200k_entry": (4096, 32, 1, False),
+    "serve_200k_recall_entry": (1024, 32, 1, False),
     "serve_mips_1m": (4096, 24, 64, False),
+    "serve_mips_recall": (1024, 24, 64, False),
+    "serve_mips_entry": (4096, 24, 1, False),
+    "serve_mips_recall_entry": (1024, 24, 1, False),
     "micro": (256, 32, 64, False),
     "cosine_norm_shared": (4096, 32, 64, True),
     "unaligned": (12, 13, 70, False),
@@ -1066,10 +1087,26 @@ def _k6_inputs(gen: torch.Generator, q: int, mp: int, c: int, shared: bool):
 
 
 def _k6_bytes(luts: torch.Tensor, codes: torch.Tensor) -> int:
-    """K6's least traffic: each distinct table read once (one for a shared
-    table), the codes read once, the scores written once."""
+    """K6's traffic with whole tables: each distinct table read once (one
+    for a shared table), the codes read once, the scores written once."""
     tables = 1 if luts.stride(0) == 0 else luts.shape[0]
     return tables * luts[0].numel() * 4 + codes.numel() + codes.shape[0] * codes.shape[2] * 4
+
+
+def _k6_sector_bytes(luts: torch.Tensor, codes: torch.Tensor) -> int:
+    """K6's least traffic for these codes, in the 32-byte sectors that HBM
+    moves: of each distinct table, the sectors that the codes' gathers
+    touch (a row's 32 entries are four sectors: low nibbles 0-7 and 8-15,
+    high nibbles 0-7 and 8-15), each read once; the codes read once, the
+    scores written once.  With few candidates a query (the entry scores)
+    the gathers touch about half of each table; at C = 64 all of it."""
+    q, mp, c = codes.shape
+    touched = torch.zeros((q, mp, 4), dtype=torch.bool, device=codes.device)
+    touched.scatter_(2, ((codes & 15) >> 3).long(), True)
+    touched.scatter_(2, (2 + (codes >> 7)).long(), True)
+    if q > 1 and luts.stride(0) == 0:
+        touched = touched.any(0)
+    return int(touched.sum()) * 32 + codes.numel() + q * c * 4
 
 
 def _k6_library(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -1079,21 +1116,32 @@ def _k6_library(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
 
 def _k6_check(gen, q, mp, c, shared, timed: bool) -> dict:
-    from jvector_tpu_torch.ops.adc16 import adc16_ref
-    from jvector_tpu_torch.ops.kernels.adc16 import adc16_score_kernel
+    """K6 at one shape: bit-equal to ``adc16_ordered`` (the Pallas order)
+    and within float32 rounding of ``adc16_ref`` (the CPU paths' twin),
+    the wrapper's launch plan, the sector bound (:func:`_k6_sector_bytes`)
+    beside the whole-table one, and where ``timed`` the event ms of the
+    wrapper, of ``adc16_ref`` (the plain version) and of the library call,
+    the kernel's device us (back to back) and host us a wrapper call, and
+    its share of the sector bound."""
+    from jvector_tpu_torch.ops.adc16 import adc16_ordered, adc16_ref
+    from jvector_tpu_torch.ops.kernels.adc16 import adc16_score_kernel, plan_for
 
     luts, codes = _k6_inputs(gen, q, mp, c, shared)
     got = adc16_score_kernel(luts, codes)
-    want = adc16_ref(luts, codes)
+    want, ref = adc16_ordered(luts, codes), adc16_ref(luts, codes)
     torch.cuda.synchronize()
-    row = {"shape": {"Q": q, "MP": mp, "C": c, "shared_table": shared},
-           "allclose": bool(torch.allclose(got, want, rtol=1e-5, atol=1e-4)),
-           "max_abs_err": float((got - want).abs().max()), "bytes": _k6_bytes(luts, codes)}
-    row["bound_ms"] = bound_ms(row["bytes"])
+    row = {"shape": {"Q": q, "MP": mp, "C": c, "shared_table": shared}, "plan": plan_for(luts, codes)._asdict(),
+           "bit_equal": bool(torch.equal(got, want)), "max_abs_err": float((got - want).abs().max()),
+           "allclose_vs_adc16_ref": bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-4)),
+           "max_abs_err_vs_adc16_ref": float((got - ref).abs().max()),
+           "bound_ms": bound_ms(_k6_sector_bytes(luts, codes)), "table_bound_ms": bound_ms(_k6_bytes(luts, codes))}
     if timed:
         row["ms"] = median_ms(lambda: adc16_score_kernel(luts, codes))
         row["plain_ms"] = median_ms(lambda: adc16_ref(luts, codes))
         row["library_ms"] = median_ms(lambda: _k6_library(luts, codes))
+        row["device_us"] = device_us(lambda: adc16_score_kernel(luts, codes))["device_us"]
+        row["host_us"] = host_us(lambda: adc16_score_kernel(luts, codes))
+        row["share_of_bound"] = row["bound_ms"] * 1e3 / row["device_us"] if row["device_us"] else None
     return row
 
 
@@ -1238,17 +1286,21 @@ def phase_kernel_check() -> list[dict]:
                            for name, r in rows.items()}})
 
     rows = {name: _k6_check(gen, *shape, timed=name != "unaligned") for name, shape in K6_SHAPES.items()}
+    for name, r in rows.items():  # the launch plan of each shape, as the wrapper's planner chose it
+        print(f"K6 plan {name} {r['shape']}: {r['plan']}", flush=True)
     emit({"phase": "kernel_check", "kernel": "K6 adc16_score_kernel", "shapes": rows})
-    bad = [name for name, r in rows.items() if not r["allclose"]]
+    bad = [name for name, r in rows.items() if not (r["bit_equal"] and r["allclose_vs_adc16_ref"])]
     if bad:
-        raise SystemExit(f"K6 disagrees with its twin at {bad}")
+        raise SystemExit(f"K6 differs from adc16_ordered (or from adc16_ref beyond rounding) at {bad}")
     serve = rows["serve_200k"]
     out.append({"name": "adc16_score_kernel", "route": "cuda",
                 "source": "jvector_tpu_torch/csrc/adc16.cu",
                 "replaces": "jvector_tpu/ops/pallas/adc16_kernel.py:109",
                 "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
                 "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
-                "bound_by": "bytes", "library_ms": serve["library_ms"]})
+                "bound_by": "bytes", "library_ms": serve["library_ms"], "device_us": serve["device_us"],
+                "host_us": serve["host_us"],
+                "shapes": {name: {k: v for k, v in r.items() if k != "plan"} for name, r in rows.items()}})
     torch.cuda.empty_cache()
     return out
 
@@ -1279,12 +1331,25 @@ def reset_counts() -> None:
     for fn in _counters().values():
         fn.launches = 0
     _counters()["adc_score_kernel"].by_shape.clear()
+    _counters()["adc16_score_kernel"].by_shape.clear()
 
 
 def read_k5_shapes() -> dict:
     """K5's launches since the last :func:`reset_counts` by shape, ``"QxCxM"``."""
     return {"x".join(map(str, shape)): n
             for shape, n in sorted(_counters()["adc_score_kernel"].by_shape.items(), key=lambda kv: -kv[1])}
+
+
+def read_k6_shapes(what: str) -> dict:
+    """K6's launches since the last :func:`reset_counts` by shape,
+    ``"QxMPxC"``; fails if ``what`` launched K6 at a shape that no
+    ``K6_SHAPES`` entry (shared table or not) holds bit-equal."""
+    shapes = {"x".join(map(str, shape)): n
+              for shape, n in sorted(_counters()["adc16_score_kernel"].by_shape.items(), key=lambda kv: -kv[1])}
+    checked = {"x".join(map(str, shape[:3])) for shape in K6_SHAPES.values()}
+    if shapes.keys() - checked:
+        raise SystemExit(f"{what} launched K6 at shapes no K6_SHAPES entry checks: {shapes}")
+    return shapes
 
 
 def read_counts() -> dict:
@@ -1424,21 +1489,24 @@ def _search_api_sq4(graph, exact, sq4, base: torch.Tensor, queries: torch.Tensor
     if any(line["resume"]["repeated_ids"].values()):
         fails.append(f"resume repeated page-1 ids: {line['resume']['repeated_ids']}")
     del state
-    line["multi_index"] = _multi_index(base, q_gt, wave, gt, fails)
+    line["multi_index"] = _multi_index(base, q_gt, wave, fails)
     return line, fails
 
 
-def _multi_index(base: torch.Tensor, q_gt: torch.Tensor, wave: torch.Tensor, gt: np.ndarray, fails: list) -> dict:
-    """:data:`MULTI_SHARDS` SQ4 shards of equal size built from the corpus
-    (``build_graph`` at the flagship config, SQ4 first pass, exact rerank),
-    merged by ``multi_search``: the stacked path (one wave over the shards'
-    tables laid end to end) and the sequential one with and without
-    ``rerank_floor``; recall against the ground truth over the union."""
+def _multi_index(base: torch.Tensor, q_gt: torch.Tensor, wave: torch.Tensor, fails: list) -> dict:
+    """:data:`MULTI_SHARDS` SQ4 shards of equal size built from the corpus's
+    first :data:`MULTI_N` vectors (``build_graph`` at the flagship config,
+    SQ4 first pass, exact rerank), merged by ``multi_search``: the stacked
+    path (one wave over the shards' tables laid end to end) and the
+    sequential one with and without ``rerank_floor``; recall against the
+    exact top-10 over the vectors the shards index."""
     from jvector_tpu_torch.graph import GraphConfig, build_graph
     from jvector_tpu_torch.graph.multi import IndexShard, _can_stack, multi_search
     from jvector_tpu_torch.quantization import ScalarQuantization4
     from jvector_tpu_torch.util.datasets import recall_at_k
 
+    base = base[:MULTI_N]
+    gt = _exact_topk(base, q_gt, TOP_K)
     per = base.shape[0] // MULTI_SHARDS
     reset_counts()
     shards, t0 = [], time.time()
@@ -1450,7 +1518,8 @@ def _multi_index(base: torch.Tensor, q_gt: torch.Tensor, wave: torch.Tensor, gt:
         shards.append(IndexShard(graph=g, provider=sq.provider_for_graph(codes, g.base.neighbors, "euclidean"),
                                  reranker=ex, id_offset=s * per))
     torch.cuda.synchronize()
-    row = {"shards": MULTI_SHARDS, "shard_n": per, "build_seconds": time.time() - t0, "build_launches": read_counts(),
+    row = {"shards": MULTI_SHARDS, "shard_n": per, "n": base.shape[0], "build_seconds": time.time() - t0,
+           "build_launches": read_counts(),
            "stackable": _can_stack(shards)}
     kw = dict(top_k=TOP_K, beam_width=API_BEAM, rerank_k=API_BEAM)
     runs = {"stacked": dict(stacked=True), "sequential": dict(stacked=False),
@@ -1517,6 +1586,7 @@ def _lut16_serve(graph, exact, base: torch.Tensor, queries: torch.Tensor, gt: np
     if qps_beam is not None:
         row["qps_beam"], row["qps"] = qps_beam, _qps(lambda q: run(q, qps_beam), queries)
     row["launches"] = read_counts()
+    row["k6_launches_by_shape"] = read_k6_shapes("the LUT16 serve")
     del prov, fused, packed
     torch.cuda.empty_cache()
     return row
@@ -1988,16 +2058,18 @@ def phase_lut16_parity(dev: torch.device) -> dict:
 def phase_micro(dev: torch.device) -> dict:
     """``jvector_tpu_torch.bench.micro.run_micro`` at its defaults, with the
     launches over its rows, then its compaction row
-    (``run_compact_micro`` at its defaults: two 25k SQ4 segments, d = 64)."""
+    (``run_compact_micro`` at ``n`` = :data:`MICRO_COMPACT_N`: two 12.5k SQ4
+    segments, d = 64)."""
     from jvector_tpu_torch.bench.micro import run_compact_micro, run_micro
 
     reset_counts()
     t0 = time.time()
     rows = run_micro(device=dev)
-    result = {"phase": "micro", "seconds": time.time() - t0, "rows": rows, "launches": read_counts()}
+    result = {"phase": "micro", "seconds": time.time() - t0, "rows": rows, "launches": read_counts(),
+              "k6_launches_by_shape": read_k6_shapes("the micro")}
     reset_counts()
     t0 = time.time()
-    result["rows"] += run_compact_micro(device=dev)
+    result["rows"] += run_compact_micro(n=MICRO_COMPACT_N, device=dev)
     result["compact_seconds"] = time.time() - t0
     result["compact_launches"] = read_counts()
     emit(result)

@@ -3,6 +3,7 @@
     python experiments/torch_kernel_profile.py
     python experiments/torch_kernel_profile.py --k5 [--rounds 2]
     python experiments/torch_kernel_profile.py --parent DIR [--rounds 3]
+    python experiments/torch_kernel_profile.py --k6-plans [--rounds 2]
 
 With ``--parent``, DIR holds another revision's kernel sources (for
 instance ``git show REV:jvector_tpu_torch/csrc/adc.cu > DIR/adc.cu``, in a
@@ -19,7 +20,20 @@ REV:jvector_tpu_torch/ops/kernels/scatter_rows.py > DIR/scatter_rows.py``):
 K7, K4b and K4a at ``chip_smoke.py``'s five scatter cases through each
 revision's own wrapper, device us, CUDA-event ms and host us a call
 beside the library call's, the byte bound, the sector bound and the
-launch floor (:func:`compare_scatter`).
+launch floor (:func:`compare_scatter`).  ``adc16.cu`` with its wrapper
+module ``adc16.py``: K6 at every ``chip_smoke.K6_SHAPES`` shape through
+each revision's own wrapper, both held to ``adc16_ordered`` (the tree's
+bit for bit), then device us (warm, back to back; and cold, clean-cold and
+warm from ``chip_smoke.cold_warm_us``), CUDA-event ms and host us a call
+beside the library call's, the sector bound and the whole-table byte
+bound (:func:`compare_adc16`).
+
+``--k6-plans`` runs K6 through its wrapper at every ``chip_smoke.K6_SHAPES``
+shape under its own launch plan and under :data:`K6_VARIANTS` (the
+planner's thresholds set for one or two candidates a thread, the staged
+kernel at every C), each bit-checked against ``adc16_ordered``, and prints
+device us (warm, back to back, and cold) of each in turns with the
+wrapper's plan (:func:`k6_plans`).
 
 ``--k5`` alone runs :func:`k5_profile` on the tree's K5: each shape's
 device us a call with a cold L2 (256 MB written before every call,
@@ -66,8 +80,10 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 from jvector_tpu_torch.ops.adc import adc_score_ordered  # noqa: E402
+from jvector_tpu_torch.ops.adc16 import adc16_ordered  # noqa: E402
 from jvector_tpu_torch.ops.kernels import _build  # noqa: E402
 from jvector_tpu_torch.ops.kernels import adc as tadc  # noqa: E402
+from jvector_tpu_torch.ops.kernels import adc16 as tadc16  # noqa: E402
 from jvector_tpu_torch.ops.kernels import packed_adj as tpa  # noqa: E402
 from jvector_tpu_torch.ops.kernels import scatter_rows as tsr  # noqa: E402
 from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel  # noqa: E402
@@ -217,14 +233,14 @@ class ParentBuild:
             return self.lib
 
 
-def parent_scatter(src_dir: str, out_dir: str):
-    """The parent's wrapper module ``src_dir/scatter_rows.py``, loaded under
-    another name, its ``_build`` routed to ``src_dir/scatter_rows.cu``
-    built into ``out_dir``."""
-    out = os.path.join(out_dir, "parent_scatter_rows.so")
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, os.path.join(src_dir, "scatter_rows.cu")],
+def parent_module(src_dir: str, out_dir: str, name: str):
+    """The parent's wrapper module ``src_dir/<name>.py``, loaded under
+    another name, its ``_build`` routed to ``src_dir/<name>.cu`` built into
+    ``out_dir``."""
+    out = os.path.join(out_dir, f"parent_{name}.so")
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, os.path.join(src_dir, f"{name}.cu")],
                    check=True)
-    spec = importlib.util.spec_from_file_location("parent_scatter_rows", os.path.join(src_dir, "scatter_rows.py"))
+    spec = importlib.util.spec_from_file_location(f"parent_{name}", os.path.join(src_dir, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod._build = ParentBuild(out)
@@ -318,13 +334,124 @@ def compare_scatter(parent, rounds: int) -> None:
         torch.cuda.empty_cache()
 
 
+def compare_adc16(parent, rounds: int) -> None:
+    """K6 through the parent's wrapper module and the tree's in turns at
+    every ``chip_smoke.K6_SHAPES`` shape: both against ``adc16_ordered``
+    first (the tree's must be bit-equal), then per version device us
+    (``chip_smoke.device_us``, back to back), CUDA-event ms
+    (``chip_smoke.median_ms``), host us a call (``chip_smoke.host_us``) and
+    ``chip_smoke.cold_warm_us``, and the library call's once a round; one
+    JSON line a shape with every sample, the medians, the sector bound
+    (shares are of it), the whole-table byte bound and the change's launch
+    plan."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = torch.empty(chip_smoke.L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    versions = {"parent": parent.adc16_score_kernel, "change": tadc16.adc16_score_kernel}
+    med = lambda xs: float(np.median([x for x in xs if x is not None])) if any(x is not None for x in xs) else None  # noqa: E731,E501
+    for name, shape in chip_smoke.K6_SHAPES.items():
+        luts, codes = chip_smoke._k6_inputs(gen, *shape)
+        want = adc16_ordered(luts, codes)
+        outs = {v: f(luts, codes) for v, f in versions.items()}
+        torch.cuda.synchronize()
+        row = {"shape": name, "Q_MP_C_shared": list(shape), "plan": tadc16.plan_for(luts, codes)._asdict(),
+               "bound_us": chip_smoke.bound_ms(chip_smoke._k6_sector_bytes(luts, codes)) * 1e3,
+               "table_bound_us": chip_smoke.bound_ms(chip_smoke._k6_bytes(luts, codes)) * 1e3,
+               "bit_equal_to_ordered": {v: bool(torch.equal(o, want)) for v, o in outs.items()},
+               "max_abs_diff_to_ordered": {v: float((o - want).abs().max()) for v, o in outs.items()}}
+        keys = ("device_us", "ms", "host_us", "event_cold_us", "event_clean_cold_us", "event_warm_us",
+                "device_cold_us", "device_clean_cold_us", "device_warm_us")
+        samples = {v: {k: [] for k in keys} for v in versions}
+        lib = {k: [] for k in keys}
+        for _ in range(rounds):
+            for v in ("parent", "change", "change", "parent", "library"):
+                call = (lambda: chip_smoke._k6_library(luts, codes)) if v == "library" else (
+                    lambda f=versions[v]: f(luts, codes))
+                got = {"device_us": chip_smoke.device_us(call)["device_us"], "ms": chip_smoke.median_ms(call),
+                       "host_us": chip_smoke.host_us(call),
+                       **chip_smoke.cold_warm_us(call, None if v == "library" else "adc16", flush)}
+                for k in keys:
+                    (lib if v == "library" else samples[v])[k].append(got.get(k))
+        row["median"] = {v: {k: med(xs) for k, xs in m.items()} for v, m in samples.items()}
+        row["library_median"] = {k: med(xs) for k, xs in lib.items()}
+        row["share_of_bound"] = {v: {k: (row["bound_us"] / m[k] if m[k] else None)
+                                     for k in ("device_us", "device_cold_us", "device_clean_cold_us")}
+                                 for v, m in row["median"].items()}
+        row["samples"] = samples
+        print(json.dumps(row), flush=True)
+        del luts, codes, want, outs
+    print(json.dumps({"launch_floor_us": chip_smoke.launch_floor_us()}), flush=True)
+
+
+# K6 plans beside the wrapper's: the planner's thresholds set so that every
+# shape takes the staged kernel with one candidate a thread, or two
+# (``ops/kernels/adc16.py``'s ``DIRECT_MAX_C`` and ``WIDE_MIN_THREADS``)
+K6_VARIANTS = {"v1": {"DIRECT_MAX_C": 0, "WIDE_MIN_THREADS": 1 << 62},
+               "v2": {"DIRECT_MAX_C": 0, "WIDE_MIN_THREADS": 0}}
+
+
+@contextlib.contextmanager
+def k6_variant(knobs: dict):
+    """The K6 wrapper planning under ``knobs`` (its cached plans cleared on
+    the way in and out)."""
+    kept = {k: getattr(tadc16, k) for k in knobs}
+    tadc16._c_plans.clear()
+    for k, value in knobs.items():
+        setattr(tadc16, k, value)
+    try:
+        yield
+    finally:
+        for k, value in kept.items():
+            setattr(tadc16, k, value)
+        tadc16._c_plans.clear()
+
+
+def k6_plans(rounds: int) -> None:
+    """K6 through its wrapper under its own plan and under each
+    :data:`K6_VARIANTS` plan at every ``chip_smoke.K6_SHAPES`` shape:
+    bit-equal to ``adc16_ordered`` or marked so, then device us
+    (``chip_smoke.device_us``, back to back) and cold
+    (``chip_smoke.cold_warm_us``), the wrapper's plan timed between every
+    variant; one JSON line a shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = torch.empty(chip_smoke.L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    med = lambda xs: float(np.median([x for x in xs if x is not None])) if any(x is not None for x in xs) else None  # noqa: E731,E501
+    variants = {"wrapper": {}, **K6_VARIANTS}
+    call = lambda: adc16_score_kernel(luts, codes)  # noqa: E731
+    for name, shape in chip_smoke.K6_SHAPES.items():
+        luts, codes = chip_smoke._k6_inputs(gen, *shape)
+        want = adc16_ordered(luts, codes)
+        row = {"shape": name, "Q_MP_C_shared": list(shape),
+               "bound_us": chip_smoke.bound_ms(chip_smoke._k6_sector_bytes(luts, codes)) * 1e3, "plans": {}}
+        samples = {k: {"device_us": [], "device_cold_us": []} for k in variants}
+        for _ in range(rounds):
+            for k in variants:
+                for v in (("wrapper", k) if k != "wrapper" else ("wrapper",)):
+                    with k6_variant(variants[v]):
+                        samples[v]["device_us"].append(chip_smoke.device_us(call)["device_us"])
+                        samples[v]["device_cold_us"].append(
+                            chip_smoke.cold_warm_us(call, "adc16", flush)["device_cold_us"])
+        for k, knobs in variants.items():
+            with k6_variant(knobs):
+                out = call()
+                row["plans"][k] = {"plan": tadc16.plan_for(luts, codes)._asdict(),
+                                   "bit_equal": bool(torch.equal(out, want)),
+                                   **{m: med(xs) for m, xs in samples[k].items()}}
+        print(json.dumps(row), flush=True)
+        del luts, codes, want, out
+
+
 def compare_parent(src_dir: str, rounds: int) -> None:
+    if os.path.exists(os.path.join(src_dir, "adc16.cu")):
+        with tempfile.TemporaryDirectory() as tmp:
+            compare_adc16(parent_module(src_dir, tmp, "adc16"), rounds)
     if os.path.exists(os.path.join(src_dir, "adc.cu")):
         with tempfile.TemporaryDirectory() as tmp:
             k5_profile(parent_k5(src_dir, tmp), rounds)
     if os.path.exists(os.path.join(src_dir, "scatter_rows.cu")):
         with tempfile.TemporaryDirectory() as tmp:
-            compare_scatter(parent_scatter(src_dir, tmp), rounds)
+            compare_scatter(parent_module(src_dir, tmp, "scatter_rows"), rounds)
     if not os.path.exists(os.path.join(src_dir, "packed_adj.cu")):
         return
     dev = torch.device("cuda")
@@ -371,18 +498,22 @@ def compare_parent(src_dir: str, rounds: int) -> None:
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--parent", help="directory with another revision's adc.cu, packed_adj.cu and "
-                                     "fused_update.cu, and / or scatter_rows.cu with scatter_rows.py")
+                                     "fused_update.cu, and / or scatter_rows.cu with scatter_rows.py, and / or "
+                                     "adc16.cu with adc16.py")
     p.add_argument("--k5", action="store_true", help="K5's cold and warm times at every shape, no parent")
+    p.add_argument("--k6-plans", action="store_true", help="K6 under other launch plans at every shape")
     p.add_argument("--rounds", type=int, default=3, help="parent, change, change, parent rounds (with --parent)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     for src in ("packed_adj.cu", "fused_update.cu", "scatter_rows.cu", "adc.cu", "adc16.cu"):
         print(json.dumps({"source": src, "ptxas": ptxas_usage(src)}), flush=True)
-    if args.parent or args.k5:
+    if args.parent or args.k5 or args.k6_plans:
         if args.parent:
             compare_parent(args.parent, args.rounds)
-        else:
+        if args.k6_plans:
+            k6_plans(args.rounds)
+        if args.k5:
             k5_profile(rounds=args.rounds)
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip(), flush=True)
@@ -429,7 +560,7 @@ def main() -> None:
     for shape in ("serve_200k", "serve_mips_1m", "micro", "cosine_norm_shared"):
         luts, codes = chip_smoke._k6_inputs(gen, *chip_smoke.K6_SHAPES[shape])
         name = f"K6 adc16_score_kernel {shape}"
-        bounds[name] = chip_smoke.bound_ms(chip_smoke._k6_bytes(luts, codes)) * 1e3
+        bounds[name] = chip_smoke.bound_ms(chip_smoke._k6_sector_bytes(luts, codes)) * 1e3
         calls.append((name, lambda luts=luts, codes=codes: adc16_score_kernel(luts, codes)))
     # the library calls that compute the same functions (chip_smoke.py's yardsticks)
     calls += [

@@ -1,5 +1,5 @@
 """Where a short kernel call's time goes on the host: the scatter wrappers
-against the PyTorch calls they stand in for.
+and K6's against the PyTorch calls they stand in for.
 
     python experiments/torch_launch_cost.py [--rounds 7]
 
@@ -16,7 +16,12 @@ over, and prints one JSON line a call with every sample and the medians:
   the K4b wrapper passes it, taken beforehand (the ctypes call and the
   launch, no checks, no plan);
 - the K4b and K7 wrappers, and ``index_copy_`` / ``index_put_`` on the
-  same inputs (``chip_smoke.index_copy`` / ``index_put``).
+  same inputs (``chip_smoke.index_copy`` / ``index_put``);
+- at K6's serve_200k shape (``chip_smoke.K6_SHAPES``): ``torch.empty`` of
+  its ``[4096, 64]`` float32 output alone, ``K6 entry alone`` (the bound C
+  entry with the arguments the wrapper passes it, into one output taken
+  beforehand), the K6 wrapper, and the gather-and-sum library call
+  (``chip_smoke._k6_library``).
 
 A span this short is host time: the event after the call is enqueued
 only when the host returns, after the kernel has run.  Ends with the
@@ -39,6 +44,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 from jvector_tpu_torch.ops.kernels import _build  # noqa: E402
+from jvector_tpu_torch.ops.kernels import adc16 as tadc16  # noqa: E402
 from jvector_tpu_torch.ops.kernels import scatter_rows as tsr  # noqa: E402
 
 
@@ -60,6 +66,17 @@ def main() -> None:
     finally:
         tsr._scatter_fn = entry
     sent = sent[0]
+    luts, codes = chip_smoke._k6_inputs(torch.Generator(device=dev).manual_seed(7),
+                                        *chip_smoke.K6_SHAPES["serve_200k"])
+    k6_entry = tadc16._entry()
+    k6_sent = []  # the arguments the K6 wrapper passes, taken from one call that launches nothing
+    tadc16._adc16_fn = lambda *a: k6_sent.append(a) or 0
+    try:
+        tadc16.adc16_score_kernel(luts, codes)
+    finally:
+        tadc16._adc16_fn = k6_entry
+    k6_out = torch.empty((luts.shape[0], codes.shape[2]), device=dev)  # the wrapper's own output was freed
+    k6_sent = (*k6_sent[0][:3], k6_out.data_ptr(), *k6_sent[0][4:])
     one = torch.zeros(1, device=dev)
     copy, put = chip_smoke.index_copy(w2, idx, pay), chip_smoke.index_put(w2, *k7)
     calls = {"events alone": lambda: None,
@@ -68,7 +85,11 @@ def main() -> None:
              "K4b wrapper": lambda: tsr.scatter_rows_inplace(w2, idx, pay),
              "index_copy_": lambda: copy(w2),
              "K7 wrapper": lambda: tsr.scatter_slots_inplace(w2, *k7),
-             "index_put_": lambda: put(w2)}
+             "index_put_": lambda: put(w2),
+             "torch.empty [4096, 64] f32": lambda: torch.empty((4096, 64), device=dev),
+             "K6 entry alone": lambda: _build.check(k6_entry(*k6_sent), "K6 entry"),
+             "K6 wrapper": lambda: tadc16.adc16_score_kernel(luts, codes),
+             "K6 gather + sum": lambda: chip_smoke._k6_library(luts, codes)}
     samples = {name: {"event_us": [], "host_us": []} for name in calls}
     for _ in range(args.rounds):
         for name, call in calls.items():

@@ -12,7 +12,9 @@ two subspaces of a byte share one 32-entry table row:
 ``scores[q, c] = sum_j luts[q, j, lo(codes[q,j,c])] + luts[q, j, 16 + hi(...)]``
 
 :func:`adc16_ref` is the plain twin of the K6 kernel
-(``ops/kernels/adc16.py``), which the LUT16 provider calls.
+(``ops/kernels/adc16.py``), which the LUT16 provider calls on the CPU;
+:func:`adc16_ordered` is the same function in the Pallas kernel's
+summation order, which the K6 kernel equals bit for bit.
 """
 
 from __future__ import annotations
@@ -53,3 +55,23 @@ def adc16_ref(luts_paired: torch.Tensor, codes_packed: torch.Tensor) -> torch.Te
     g_lo = torch.gather(luts_paired[:, :, :K16], 2, lo)
     g_hi = torch.gather(luts_paired[:, :, K16:], 2, hi)
     return torch.sum(g_lo + g_hi, dim=1)
+
+
+def adc16_ordered(luts_paired: torch.Tensor, codes_packed: torch.Tensor) -> torch.Tensor:
+    """:func:`adc16_ref` in the Pallas kernel's summation order: one float32
+    accumulator a candidate, starting at 0, j ascending, and for each byte
+    the entry of its smaller nibble added first (the low one on a tie).
+    The Pallas kernel walks k = 0..15 adding the low nibble's entry where
+    ``lo == k``, then the high one's where ``hi == k``, and zeros elsewhere,
+    which is exact; the K6 kernel equals this bit for bit."""
+    q, mp, _ = luts_paired.shape
+    acc = torch.zeros((q, codes_packed.shape[2]), dtype=torch.float32, device=codes_packed.device)
+    for j in range(mp):
+        byte = codes_packed[:, j]
+        lo, hi = (byte & 0xF).long(), (byte >> 4).long()
+        e_lo = torch.gather(luts_paired[:, j, :K16], 1, lo)
+        e_hi = torch.gather(luts_paired[:, j, K16:], 1, hi)
+        hi_first = hi < lo
+        acc = acc + torch.where(hi_first, e_hi, e_lo)
+        acc = acc + torch.where(hi_first, e_lo, e_hi)
+    return acc

@@ -17,7 +17,7 @@ import torch
 
 import chip_smoke
 from jvector_tpu_torch.ops.adc import adc_score, adc_score_ordered
-from jvector_tpu_torch.ops.adc16 import adc16_ref
+from jvector_tpu_torch.ops.adc16 import adc16_ordered, adc16_ref
 from jvector_tpu_torch.ops.kernels import adc as tadc
 from jvector_tpu_torch.ops.kernels import adc16 as tadc16
 from jvector_tpu_torch.ops.kernels import packed_adj as tpa
@@ -530,13 +530,18 @@ def _k6_case(seed: int, q: int, mp: int, c: int):
 @pytest.mark.parametrize(
     "q, mp, c, shared",
     [(4096, 32, 64, False), (4096, 24, 64, False), (256, 32, 64, False), (4096, 32, 64, True), (12, 13, 70, False),
-     (2, 400, 300, False)],
-    ids=["serve_200k", "serve_mips_1m", "micro", "cosine_norm_shared", "unaligned", "mp_chunks_c_tiles"],
+     (2, 400, 300, False), (1024, 32, 64, False), (4096, 32, 1, False), (3, 900, 40, True), (1, 32, 5000, False),
+     (4096, 32, 1, True), (300, 13, 3, False)],
+    ids=["serve_200k", "serve_mips_1m", "micro", "cosine_norm_shared", "unaligned", "mp_chunks_c_tiles",
+         "recall_wave", "entry", "shared_table_in_chunks", "one_query_wide", "entry_shared", "direct_ragged"],
 )
 def test_k6_kernel_matches_twin_on_card(cuda_device, q, mp, c, shared):
-    """The chip check's shapes; a query stride of 0 shares one table (the
-    cosine norm); MP = 400 stages the LUT in two MP-chunks and C = 300 takes
-    two candidate tiles.  Only the order of the float32 sum differs."""
+    """The chip check's shapes and the launch plan's corners: a query stride
+    of 0 shares one table (the cosine norm); MP = 400 and 900 copy the
+    tables in chunks of rows, C = 300 takes two candidate tiles, C <= 4
+    gathers from device memory (the entry scores).
+    Bit for bit in the Pallas kernel's order (``adc16_ordered``), and
+    within float32 rounding of ``adc16_ref``, whose order differs."""
     luts, codes = _k6_case(q + mp + c, q, mp, c)
     tl, tc = _t(luts, cuda_device), _t(codes, cuda_device)
     if shared:
@@ -545,7 +550,28 @@ def test_k6_kernel_matches_twin_on_card(cuda_device, q, mp, c, shared):
     got = tadc16.adc16_score_kernel(tl, tc)
     torch.cuda.synchronize()
     assert tadc16.adc16_score_kernel.launches == before + 1
+    assert torch.equal(got, adc16_ordered(tl, tc))
     torch.testing.assert_close(got, adc16_ref(tl, tc), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lut_shift, code_shift", [(1, 0), (4, 0), (0, 1), (0, 2), (1, 3)],
+                         ids=["luts_4_bytes_off", "luts_16_bytes_off", "codes_1_byte_off", "codes_2_bytes_off",
+                              "both_off"])
+def test_k6_unaligned_tensors_on_card(cuda_device, lut_shift, code_shift):
+    """Tables anywhere on a 4-byte boundary, and codes off a 16-byte
+    boundary (read from device memory, not copied beside the tables), stay
+    bit-equal to ``adc16_ordered``."""
+    q, mp, c = 4096, 32, 64
+    luts, codes = _k6_case(5, q, mp, c)
+    lbuf = torch.zeros(q * mp * 32 + lut_shift, device=cuda_device)
+    tl = lbuf[lut_shift:].view(q, mp, 32)
+    tl.copy_(_t(luts, cuda_device))
+    cbuf = torch.zeros(q * mp * c + code_shift, dtype=torch.uint8, device=cuda_device)
+    tc = cbuf[code_shift:].view(q, mp, c)
+    tc.copy_(_t(codes, cuda_device))
+    assert torch.equal(tadc16.adc16_score_kernel(tl, tc), adc16_ordered(tl, tc))
+    assert tadc16.plan_for(tl, tc).stage_codes == (code_shift == 0)
 
 
 @pytest.mark.cuda
