@@ -30,6 +30,9 @@ port's tests hold it against.
 - ``entry``         — a search step and the multi-device dry run
 - ``bench``         — the bench script, micro-benchmarks, the grid runner,
   the IPC service and the bench CLI
+- ``tracing``       — the port's own spans and counters (the beam loop's):
+  host stamps of the last unprofiled request, and a window of spans and
+  counters while a PyTorch profiler collects
 """
 
 from jvector_tpu_torch.disk import (

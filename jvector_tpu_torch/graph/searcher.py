@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from jvector_tpu_torch import tracing
 from jvector_tpu_torch.graph.diversity import dedup_sorted_desc
 from jvector_tpu_torch.graph.hierarchy import LevelProvider, slots_for
 from jvector_tpu_torch.graph.index import NEG_INF, GraphIndex
@@ -324,12 +325,20 @@ def search_layer(
         )
         state = state._replace(res_ids=res_ids, res_scores=res_scores)
     use_fused = getattr(provider, "supports_fused", False)
-    while state.iters < max_iters and bool(_live(state).any()):
+    iters0, pops0 = state.iters, state.expanded_count
+    while state.iters < max_iters:
+        with tracing.span("beam.stop_test"):
+            live = bool(_live(state).any())
+        if not live:
+            break
         for _ in range(min(check_every, max_iters - state.iters)):
-            state = _step(
-                state, graph_neighbors, provider, qstate, E, R, packed_rows, use_fused,
-                accept, stop_threshold,
-            )
+            with tracing.span("beam.step"):
+                state = _step(
+                    state, graph_neighbors, provider, qstate, E, R, packed_rows, use_fused,
+                    accept, stop_threshold,
+                )
+    tracing.add("beam.lane_slots", (state.iters - iters0) * Q * E)
+    tracing.add("beam.pops", lambda: (state.expanded_count - pops0).sum())
     return state
 
 
@@ -700,44 +709,45 @@ def search(
               entry_seeds=entry_seeds, repack_after=repack_after, hierarchy_beam=hierarchy_beam,
               threshold=threshold, exclude_ids=exclude_ids, rerank_floor=rerank_floor,
               return_state=return_state, init_state=init_state)
-    if accept is None or init_state is not None:
-        return _search_wave(graph, provider, queries, top_k, beam_width=beam_width, accept=accept, **kw)
-    L = beam_width or max(top_k, 100)
-    # low-cardinality cutoff: exact evaluation of a small accepted set beats
-    # traversal and avoids the one geometry the bounded frontier explores
-    # poorly (a small accepted island far from the entry); Cassandra SAI
-    # makes the same call for low-cardinality predicates
-    if accept_brute_cutoff is None:
-        accept_brute_cutoff = max(4 * L, 512)
-    if not return_state and rerank_floor is None:
-        acc_ids = torch.nonzero(torch.as_tensor(accept).to(torch.bool)).flatten().cpu().numpy()
-        if acc_ids.size <= accept_brute_cutoff:
-            A = 1 << max(4, int(max(acc_ids.size, top_k) - 1).bit_length())
-            ids = np.full(A, -1, np.int32)
-            ids[: acc_ids.size] = acc_ids
-            rk = rerank_k or (L if reranker is not None else top_k)
-            dev = queries.device
-            return _filtered_brute(
-                graph, provider, queries, torch.as_tensor(ids, device=dev), top_k, min(max(rk, top_k), A),
-                reranker, threshold, None if exclude_ids is None else torch.as_tensor(exclude_ids, device=dev),
-            )
-    cap = min(graph.capacity, max(16 * L, 1024))
-    # widen only while widening finds more results: results can be missing
-    # legitimately (threshold-dropped, or fewer reachable accepted nodes
-    # than top_k); two rounds without gain stop short of the cap, so a
-    # plateau-then-jump geometry gets its second widening
-    prev_found, stalled = -1, 0
-    while True:
-        out = _search_wave(graph, provider, queries, top_k, beam_width=L, accept=accept, **kw)
-        res = out[0] if return_state else out
-        found = int((res.ids >= 0).sum())
-        if L >= cap or found == res.ids.numel():
-            return out
-        stalled = stalled + 1 if found <= prev_found else 0
-        if stalled >= 2:
-            return out
-        prev_found = found
-        L = min(2 * L, cap)
+    with tracing.span("search"):
+        if accept is None or init_state is not None:
+            return _search_wave(graph, provider, queries, top_k, beam_width=beam_width, accept=accept, **kw)
+        L = beam_width or max(top_k, 100)
+        # low-cardinality cutoff: exact evaluation of a small accepted set beats
+        # traversal and avoids the one geometry the bounded frontier explores
+        # poorly (a small accepted island far from the entry); Cassandra SAI
+        # makes the same call for low-cardinality predicates
+        if accept_brute_cutoff is None:
+            accept_brute_cutoff = max(4 * L, 512)
+        if not return_state and rerank_floor is None:
+            acc_ids = torch.nonzero(torch.as_tensor(accept).to(torch.bool)).flatten().cpu().numpy()
+            if acc_ids.size <= accept_brute_cutoff:
+                A = 1 << max(4, int(max(acc_ids.size, top_k) - 1).bit_length())
+                ids = np.full(A, -1, np.int32)
+                ids[: acc_ids.size] = acc_ids
+                rk = rerank_k or (L if reranker is not None else top_k)
+                dev = queries.device
+                return _filtered_brute(
+                    graph, provider, queries, torch.as_tensor(ids, device=dev), top_k, min(max(rk, top_k), A),
+                    reranker, threshold, None if exclude_ids is None else torch.as_tensor(exclude_ids, device=dev),
+                )
+        cap = min(graph.capacity, max(16 * L, 1024))
+        # widen only while widening finds more results: results can be missing
+        # legitimately (threshold-dropped, or fewer reachable accepted nodes
+        # than top_k); two rounds without gain stop short of the cap, so a
+        # plateau-then-jump geometry gets its second widening
+        prev_found, stalled = -1, 0
+        while True:
+            out = _search_wave(graph, provider, queries, top_k, beam_width=L, accept=accept, **kw)
+            res = out[0] if return_state else out
+            found = int((res.ids >= 0).sum())
+            if L >= cap or found == res.ids.numel():
+                return out
+            stalled = stalled + 1 if found <= prev_found else 0
+            if stalled >= 2:
+                return out
+            prev_found = found
+            L = min(2 * L, cap)
 
 
 def resume(
