@@ -43,6 +43,14 @@ Phases, each printing one JSON line:
    beside its bound (bytes over 3.35 TB/s) and the PyTorch call that
    computes the same function, where one does (K4a / K4b: ``index_copy_``,
    K7: ``index_put_``, K5: gather + sum, K6: a gather per nibble + sum);
+   last, K8 (the beam step's frontier filter) against its twin
+   ``frontier_filter_ref`` (each output ``torch.equal``, one launch a
+   call) at every ``K8_SHAPES`` shape (the two benchmark cells' serve
+   waves, the SQ4 cell's repacked tail, the build's wave search, a
+   filtered widening whose beam and ring outgrow one tile), with its byte
+   and compare bounds, and at the two serve shapes its event ms beside
+   the twin's, its device us (and the kernels a call launched), the
+   twin's device us and its host us a wrapper call;
 4. robustness (``bench.py``'s robustness corpora through
    ``jvector_tpu_torch.bench.headline``): **mips-96d at ``--n``** (the main
    path; 200,000 by default, cut from bench.py's 1M so the script stays
@@ -655,13 +663,14 @@ def phase_env() -> str:
 
 
 def phase_build() -> None:
-    from jvector_tpu_torch.ops.kernels import _build, adc, adc16, packed_adj, scatter_rows
+    from jvector_tpu_torch.ops.kernels import _build, adc, adc16, frontier, packed_adj, scatter_rows
 
     t0 = time.time()
     sources = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, sources))
-    for load in (packed_adj._lib, scatter_rows._lib, scatter_rows._scatter_entry, adc._lib, adc16._entry):
+    for load in (packed_adj._lib, scatter_rows._lib, scatter_rows._scatter_entry, adc._lib, adc16._entry,
+                 frontier._entry):
         load()
     emit({"phase": "kernel_build", "sources": sources, "seconds": time.time() - t0})
 
@@ -980,6 +989,96 @@ def phase_scatter_check(rng: np.random.Generator) -> list[dict]:
             for name, line, row in (("scatter_rows3_inplace", 82, k4a), ("scatter_rows_inplace", 54, k4b_u8),
                                     ("scatter_rows_inplace", 54, k4b_f32), ("scatter_slots_inplace", 189, k7_f32),
                                     ("scatter_slots_inplace", 189, k7_u8))]
+
+
+K8_SHAPES = {  # (Q, E, R, L, T) of the beam step's frontier filter at each caller's shape
+    "bq_serve": (10_000, 1, 56, 90, 256),  # angular-bq-batch: 10,000-query waves, beam 90
+    "sq4_serve": (10_000, 1, 56, 30, 128),  # euclidean-sq4-batch: beam 30
+    "sq4_tail": (2_496, 1, 56, 30, 128),  # its repacked tail
+    "build": (512, 2, 56, 100, 256),  # the build's wave search (efConstruction 100, two pops a step)
+    "filtered_widening": (1_024, 1, 56, 1_600, 3_200),  # beam and ring beyond one tile of shared memory
+}
+K8_ACTIVE = {"bq_serve": 0.46, "sq4_serve": 0.68}  # the cells' lane use (a pop slot that pops), else 0.7
+K8_TIMED = ("bq_serve", "sq4_serve")
+INT32_COMPARES_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 64 int32 lanes an SM at the 67 TFLOP/s float32 clock
+
+
+def frontier_case(rng: np.random.Generator, q: int, e: int, r: int, l: int, t: int, active_share: float = 0.7):
+    """A beam step's frontier inputs as numpy arrays ``(nbrs [Q, E * R],
+    active [Q, E], beam [Q, L], history [Q, T])``: ids drawn from a range
+    about 1.5 x L + T wide, so that about half the candidates meet an id of
+    their row's beam or history; a fifth of the candidates repeat an
+    earlier one of their row; -1 in every id input; a share
+    ``active_share`` of the pops active, and none in the middle row."""
+    c = e * r
+    v = max(16, (l + t) * 3 // 2)
+    nbrs = rng.integers(0, v, (q, c)).astype(np.int32)
+    src = rng.integers(0, c, (q, c))
+    again = (rng.random((q, c)) < 0.2) & (src < np.arange(c))
+    nbrs = np.where(again, np.take_along_axis(nbrs, src, 1), nbrs)
+    nbrs[rng.random((q, c)) < 0.15] = -1
+    active = rng.random((q, e)) < active_share
+    active[q // 2] = False
+    beam = rng.integers(0, v, (q, l)).astype(np.int32)
+    beam[rng.random((q, l)) < 0.2] = -1
+    history = rng.integers(0, v, (q, t)).astype(np.int32)
+    history[rng.random((q, t)) < 0.3] = -1
+    return nbrs, active, beam, history
+
+
+def _k8_check(rng: np.random.Generator, name: str, timed: bool) -> dict:
+    """K8 at ``K8_SHAPES[name]``: each output ``torch.equal`` to its twin's,
+    one launch, the wrapper's plan, the byte bound (every input read once,
+    every output written once) and the compare bound (each candidate
+    against its row's beam, history and earlier candidates); where
+    ``timed`` the event ms of the wrapper and of the twin, the kernel's
+    device us and the kernels a call launched (back to back), the twin's
+    device us, and the host us a wrapper call."""
+    from jvector_tpu_torch.ops.kernels.frontier import frontier_filter, frontier_filter_ref, plan
+
+    q, e, r, l, t = K8_SHAPES[name]
+    c = e * r
+    nbrs, active, beam, history = (torch.as_tensor(x, device="cuda")
+                                   for x in frontier_case(rng, q, e, r, l, t, K8_ACTIVE.get(name, 0.7)))
+    before = frontier_filter.launches
+    got = frontier_filter(nbrs, active, r, beam, history)
+    launched = frontier_filter.launches - before
+    want = frontier_filter_ref(nbrs, active, r, beam, history)
+    torch.cuda.synchronize()
+    n_bytes = sum(x.numel() * x.element_size() for x in (nbrs, active, beam, history)) + q * c * 9
+    compares = q * c * (l + t) + q * c * (c - 1) // 2
+    row = {"shape": {"Q": q, "E": e, "R": r, "L": l, "T": t}, "plan": dict(zip(("k", "tile"), plan(c, l, t))),
+           "bit_equal": all(torch.equal(a, b) for a, b in zip(got, want)), "launches": launched,
+           "fresh_share": float(got[0].float().mean()), "active_share": float(active.float().mean()),
+           "bytes": n_bytes, "bound_ms": bound_ms(n_bytes), "compares": compares,
+           "compare_bound_ms": compares / INT32_COMPARES_PER_S * 1e3}
+    if timed:
+        call = lambda: frontier_filter(nbrs, active, r, beam, history)  # noqa: E731
+        twin = lambda: frontier_filter_ref(nbrs, active, r, beam, history)  # noqa: E731
+        row["ms"], row["plain_ms"] = median_ms(call), median_ms(twin)
+        dev = device_us(call)
+        row["device_us"], row["kernels_per_call"] = dev["device_us"], dev["kernels_per_call"]
+        row["plain_device_us"] = device_us(twin)["device_us"]
+        row["host_us"] = host_us(call)
+    return row
+
+
+def phase_frontier_check(rng: np.random.Generator) -> dict:
+    """K8 against its twin at every ``K8_SHAPES`` shape, timed at the two
+    cells' serve shapes; fails unless each is bit-equal in one launch."""
+    rows = {name: _k8_check(rng, name, name in K8_TIMED) for name in K8_SHAPES}
+    emit({"phase": "kernel_check", "kernel": "K8 frontier_filter", "shapes": rows})
+    bad = [name for name, r in rows.items() if not r["bit_equal"] or r["launches"] != 1]
+    if bad:
+        raise SystemExit(f"K8 differs from frontier_filter_ref (or did not launch once) at {bad}")
+    serve = rows["bq_serve"]
+    torch.cuda.empty_cache()
+    return {"name": "frontier_filter", "route": "cuda", "source": "jvector_tpu_torch/csrc/frontier.cu",
+            "replaces": "jvector_tpu/graph/searcher.py:99 (jnp, no Pallas kernel)", "max_abs_err": 0,
+            "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": max(serve["bound_ms"],
+                                                                           serve["compare_bound_ms"]),
+            "bound_by": "compares" if serve["compare_bound_ms"] > serve["bound_ms"] else "bytes",
+            "library_ms": None, "device_us": serve["device_us"], "host_us": serve["host_us"], "shapes": rows}
 
 
 def _k5_inputs(gen: torch.Generator, q: int, c: int, m: int, k: int):
@@ -1302,6 +1401,7 @@ def phase_kernel_check() -> list[dict]:
                 "host_us": serve["host_us"],
                 "shapes": {name: {k: v for k, v in r.items() if k != "plan"} for name, r in rows.items()}})
     torch.cuda.empty_cache()
+    out.append(phase_frontier_check(rng))
     return out
 
 
@@ -1309,6 +1409,7 @@ def _counters() -> dict:
     from jvector_tpu_torch.ops.kernels import (
         adc16_score_kernel,
         adc_score_kernel,
+        frontier_filter,
         fused_update_inplace,
         packed_adj_only_update_inplace,
         packed_adj_update_inplace,
@@ -1324,7 +1425,8 @@ def _counters() -> dict:
             "scatter_rows_inplace": scatter_rows_inplace,
             "scatter_slots_inplace": scatter_slots_inplace,
             "adc_score_kernel": adc_score_kernel,
-            "adc16_score_kernel": adc16_score_kernel}
+            "adc16_score_kernel": adc16_score_kernel,
+            "frontier_filter": frontier_filter}
 
 
 def reset_counts() -> None:
@@ -3267,7 +3369,10 @@ def main() -> None:
                  "adc_score_kernel": ("default_config_build", "default_config_serve", "default_config_refine",
                                       "default_config_rescore", "baseline_c3_serve_a", "baseline_c3_serve_b",
                                       "lifecycle_pq_compaction", "lifecycle_pq_compaction_carried"),
-                 "adc16_score_kernel": ("lut16_serve", "micro")}
+                 "adc16_score_kernel": ("lut16_serve", "micro"),
+                 "frontier_filter": ("mips_96d_build", "mips_96d_serve", "sq4_path", "default_config_build",
+                                     "default_config_serve", "ltm_serve", "search_api_filtered", "baseline_c4_serve",
+                                     "sharding", "sharding_serve")}
     c3, c4 = base_cfg["config3"], base_cfg["config4"]
     c3_20k, c4_20k = base_cfg["parity_20k"]["config3"], base_cfg["parity_20k"]["config4"]
 

@@ -1,5 +1,5 @@
-"""Where a short kernel call's time goes on the host: the scatter wrappers
-and K6's against the PyTorch calls they stand in for.
+"""Where a short kernel call's time goes on the host: the scatter wrappers,
+K6's and K8's against the PyTorch calls they stand in for.
 
     python experiments/torch_launch_cost.py [--rounds 7]
 
@@ -21,7 +21,12 @@ over, and prints one JSON line a call with every sample and the medians:
   its ``[4096, 64]`` float32 output alone, ``K6 entry alone`` (the bound C
   entry with the arguments the wrapper passes it, into one output taken
   beforehand), the K6 wrapper, and the gather-and-sum library call
-  (``chip_smoke._k6_library``).
+  (``chip_smoke._k6_library``);
+- at K8's bq_serve shape (``chip_smoke.K8_SHAPES``, the BQ cell's share of
+  active pops): ``K8 outputs alone`` (the wrapper's three output
+  allocations), ``K8 entry alone`` (the bound C entry with the arguments
+  the wrapper passes it, into outputs taken beforehand), the K8 wrapper,
+  and its plain twin, the ATen chain the beam step ran before K8.
 
 A span this short is host time: the event after the call is enqueued
 only when the host returns, after the kernel has run.  Ends with the
@@ -45,6 +50,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from jvector_tpu_torch.ops.kernels import _build  # noqa: E402
 from jvector_tpu_torch.ops.kernels import adc16 as tadc16  # noqa: E402
+from jvector_tpu_torch.ops.kernels import frontier as tfr  # noqa: E402
 from jvector_tpu_torch.ops.kernels import scatter_rows as tsr  # noqa: E402
 
 
@@ -77,6 +83,24 @@ def main() -> None:
         tadc16._adc16_fn = k6_entry
     k6_out = torch.empty((luts.shape[0], codes.shape[2]), device=dev)  # the wrapper's own output was freed
     k6_sent = (*k6_sent[0][:3], k6_out.data_ptr(), *k6_sent[0][4:])
+    q, e, r, l, t = chip_smoke.K8_SHAPES["bq_serve"]
+    k8_in = [torch.as_tensor(x, device=dev) for x in chip_smoke.frontier_case(rng, q, e, r, l, t,
+                                                                                chip_smoke.K8_ACTIVE["bq_serve"])]
+    k8_args = (k8_in[0], k8_in[1], r, k8_in[2], k8_in[3])
+    k8_entry = tfr._entry()
+    k8_sent = []  # the arguments the K8 wrapper passes, taken from one call that launches nothing
+    tfr._frontier_fn = lambda *a: k8_sent.append(a) or 0
+    try:
+        tfr.frontier_filter(*k8_args)
+    finally:
+        tfr._frontier_fn = k8_entry
+    nbrs = k8_in[0]
+
+    def k8_outputs():
+        return nbrs.new_empty(nbrs.shape, dtype=torch.bool), torch.empty_like(nbrs), torch.empty_like(nbrs)
+
+    k8_out = k8_outputs()  # the wrapper's own outputs were freed
+    k8_sent = (*k8_sent[0][:4], *(x.data_ptr() for x in k8_out), *k8_sent[0][7:])
     one = torch.zeros(1, device=dev)
     copy, put = chip_smoke.index_copy(w2, idx, pay), chip_smoke.index_put(w2, *k7)
     calls = {"events alone": lambda: None,
@@ -89,7 +113,11 @@ def main() -> None:
              "torch.empty [4096, 64] f32": lambda: torch.empty((4096, 64), device=dev),
              "K6 entry alone": lambda: _build.check(k6_entry(*k6_sent), "K6 entry"),
              "K6 wrapper": lambda: tadc16.adc16_score_kernel(luts, codes),
-             "K6 gather + sum": lambda: chip_smoke._k6_library(luts, codes)}
+             "K6 gather + sum": lambda: chip_smoke._k6_library(luts, codes),
+             "K8 outputs alone": k8_outputs,
+             "K8 entry alone": lambda: _build.check(k8_entry(*k8_sent), "K8 entry"),
+             "K8 wrapper": lambda: tfr.frontier_filter(*k8_args),
+             "K8 twin": lambda: tfr.frontier_filter_ref(*k8_args)}
     samples = {name: {"event_us": [], "host_us": []} for name in calls}
     for _ in range(args.rounds):
         for name, call in calls.items():

@@ -48,13 +48,13 @@ from jvector_tpu_torch.graph.diversity import dedup_sorted_desc
 from jvector_tpu_torch.graph.searcher import (
     BeamState,
     SearchResult,
-    _dedup_new,
     _history_len,
     _merge_beam,
     _top_e,
     _top_k_stable,
     search_layer,
 )
+from jvector_tpu_torch.ops.kernels.frontier import frontier_filter
 from jvector_tpu_torch.ops.similarity import SimilarityFunction, normalize_score
 from jvector_tpu_torch.quantization.sq import group_dims, unpack_nibble_rows_grouped
 from jvector_tpu_torch.util.device import resolve_device
@@ -133,9 +133,7 @@ def _host_step(
     popped slots leave the beam."""
     Q, E, R = nbrs.shape
     flat_nbrs = nbrs.reshape(Q, E * R)
-    valid = (flat_nbrs >= 0) & (sel_prev >= 0).repeat_interleave(R, dim=1)
-    flat_nbrs = torch.where(valid, flat_nbrs, -1)
-    fresh = valid & _dedup_new(flat_nbrs, state.ids, state.history)
+    fresh, new_ids, _ = frontier_filter(flat_nbrs, sel_prev >= 0, R, state.ids, state.history)
     scores = scorer.score_rows(qstate, k_rows.reshape(Q, E * R, -1), w2_rows.reshape(Q, E * R))
     res_ids, res_scores = state.res_ids, state.res_scores
     if acc_bits is not None:
@@ -147,7 +145,7 @@ def _host_step(
         )
         res_ids, res_scores = d_ids[:, :k], d_sc[:, :k]
     ids2, scores2, expanded2 = _merge_beam(
-        state.ids, state.scores, state.expanded, torch.where(fresh, flat_nbrs, -1), torch.where(fresh, scores, NEG_INF)
+        state.ids, state.scores, state.expanded, new_ids, torch.where(fresh, scores, NEG_INF)
     )
     # pop phase
     poppable = ~expanded2

@@ -3,8 +3,9 @@
 A whole wave of Q queries advances in lock-step over a fixed-width beam of
 ``beam_width`` score-sorted slots with an ``expanded`` flag each; the visited
 set is an exact compare-based dedup against the beam, a ring of expanded ids
-(``history``) and earlier candidates of the same step.  ``expand_per_iter``
-(E) pops the E best unexpanded slots per step.
+(``history``) and earlier candidates of the same step (the frontier filter,
+one K8 launch a step on the card: ``ops/kernels/frontier.py``).
+``expand_per_iter`` (E) pops the E best unexpanded slots per step.
 
 The JAX package runs the loop as a device ``lax.while_loop``.  Here it is a
 Python loop whose stop test ("no query has a slot left to pop") reads the
@@ -36,6 +37,7 @@ from jvector_tpu_torch import tracing
 from jvector_tpu_torch.graph.diversity import dedup_sorted_desc
 from jvector_tpu_torch.graph.hierarchy import LevelProvider, slots_for
 from jvector_tpu_torch.graph.index import NEG_INF, GraphIndex
+from jvector_tpu_torch.ops.kernels.frontier import _strictly_lower, frontier_filter
 
 CHECK_EVERY = 8  # steps between the host's reads of the stop test
 # threshold search: consecutive steps below the threshold that retire a
@@ -79,22 +81,6 @@ def _history_len(expand_per_iter: int, max_iters: int, beam_width: int) -> int:
     while step % expand_per_iter:  # keep T a multiple of E so ring writes
         step += 128  # never straddle the wrap point
     return max(((t + step - 1) // step) * step, step)
-
-
-def _strictly_lower(c: int, device) -> torch.Tensor:
-    """``[c, c]`` mask, True where column < row (an earlier entry)."""
-    return torch.ones((c, c), dtype=torch.bool, device=device).tril(diagonal=-1)
-
-
-def _dedup_new(new_ids: torch.Tensor, beam_ids: torch.Tensor, history: torch.Tensor) -> torch.Tensor:
-    """Fresh mask for ``new_ids [Q, C]`` vs beam ``[Q, L]``, history ``[Q, T]``
-    and earlier same-step candidates.  Pure dense equality reductions."""
-    n = new_ids[:, :, None]
-    dup = (n == beam_ids[:, None, :]).any(dim=2)
-    dup |= (n == history[:, None, :]).any(dim=2)
-    eq = n == new_ids[:, None, :]
-    dup |= (eq & _strictly_lower(new_ids.shape[1], new_ids.device)[None]).any(dim=2)
-    return ~dup
 
 
 def _merge_beam(beam_ids, beam_scores, beam_expanded, new_ids, new_scores):
@@ -173,16 +159,12 @@ def _step(
         nbrs = graph_neighbors[ss >> 3, ss & 7][..., :R].reshape(Q, -1)
     else:
         nbrs = graph_neighbors[safe_sel.long()].reshape(Q, -1)
-    valid = (nbrs >= 0) & active.repeat_interleave(R, dim=1)
-    nbrs = torch.where(valid, nbrs, -1)
-    fresh = valid & _dedup_new(nbrs, s.ids, history)
-    safe_nbrs = torch.where(fresh, nbrs, 0)
+    fresh, new_ids, safe_nbrs = frontier_filter(nbrs, active, R, s.ids, history)
     if use_fused:
         edge_scores = provider.score_edges(qstate, safe_sel)
     else:
         edge_scores = provider.score(qstate, safe_nbrs)
     new_scores = torch.where(fresh, edge_scores, NEG_INF)
-    new_ids = torch.where(fresh, nbrs, -1)
 
     res_ids, res_scores = s.res_ids, s.res_scores
     beam_ids, beam_scores = s.ids, s.scores
@@ -325,7 +307,7 @@ def search_layer(
         )
         state = state._replace(res_ids=res_ids, res_scores=res_scores)
     use_fused = getattr(provider, "supports_fused", False)
-    iters0, pops0 = state.iters, state.expanded_count
+    iters0, pops0, k8_0 = state.iters, state.expanded_count, frontier_filter.launches
     while state.iters < max_iters:
         with tracing.span("beam.stop_test"):
             live = bool(_live(state).any())
@@ -339,6 +321,7 @@ def search_layer(
                 )
     tracing.add("beam.lane_slots", (state.iters - iters0) * Q * E)
     tracing.add("beam.pops", lambda: (state.expanded_count - pops0).sum())
+    tracing.add("beam.frontier_kernel", frontier_filter.launches - k8_0)
     return state
 
 

@@ -5,6 +5,7 @@ its ``launches`` attribute."""
 
 from jvector_tpu_torch.ops.kernels.adc import adc_score_kernel
 from jvector_tpu_torch.ops.kernels.adc16 import adc16_score_kernel
+from jvector_tpu_torch.ops.kernels.frontier import frontier_filter, frontier_filter_ref
 from jvector_tpu_torch.ops.kernels.packed_adj import (
     packed_adj_only_update_inplace,
     packed_adj_only_update_ref,
@@ -24,6 +25,8 @@ from jvector_tpu_torch.ops.kernels.scatter_rows import (
 __all__ = [
     "adc_score_kernel",
     "adc16_score_kernel",
+    "frontier_filter",
+    "frontier_filter_ref",
     "packed_adj_update_inplace",
     "packed_adj_update_ref",
     "packed_adj_only_update_inplace",

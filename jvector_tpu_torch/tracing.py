@@ -40,7 +40,11 @@ The spans and counters of the beam loop (``graph/searcher.py``):
 - ``beam.lane_slots``: the pop slots (queries x expand width) of each
   ``search_layer`` call's steps;
 - ``beam.pops``: the pops of those steps (the slots that popped a node),
-  from the growth of the beam's ``expanded_count``.
+  from the growth of the beam's ``expanded_count``;
+- ``beam.frontier_kernel``: the steps of those calls whose frontier filter
+  went through the K8 kernel (``ops/kernels/frontier.py``: one launch a
+  step on the card, none on the CPU, where its plain twin runs), from the
+  growth of the wrapper's launch count (a host int).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""K1, K2, K3, K4a, K4b, K5, K6 and K7 kernels against their plain twins on
-a CUDA device (K1, K2 and K5 also at BASELINE configs 3 and 4's shapes).
+"""K1, K2, K3, K4a, K4b, K5, K6, K7 and K8 kernels against their plain twins
+on a CUDA device (K1, K2 and K5 also at BASELINE configs 3 and 4's shapes;
+K8 also inside a BQ search, once a beam step).
 
 The kernels have no CPU mode: without a card these tests skip, and
 ``chip_smoke.py`` runs the same comparison at the main-path shapes.  This
@@ -20,6 +21,7 @@ from jvector_tpu_torch.ops.adc import adc_score, adc_score_ordered
 from jvector_tpu_torch.ops.adc16 import adc16_ordered, adc16_ref
 from jvector_tpu_torch.ops.kernels import adc as tadc
 from jvector_tpu_torch.ops.kernels import adc16 as tadc16
+from jvector_tpu_torch.ops.kernels import frontier as tfr
 from jvector_tpu_torch.ops.kernels import packed_adj as tpa
 from jvector_tpu_torch.ops.kernels import scatter_rows as tsr
 
@@ -731,3 +733,104 @@ def test_sharded_packed_build_launches_k1_k2_per_shard_wave(cuda_device):
     assert idx.search_providers[0].fused_w2.dtype == torch.int32  # the packed regime
     ids, _ = sharded_graph_search(idx, ds.queries, mesh, top_k=10, beam_width=100)
     assert recall_at_k(ids.cpu().numpy(), ds.ground_truth, 10) >= 0.95
+
+
+K8_EDGE_SHAPES = {**{name: (shape, False) for name, shape in chip_smoke.K8_SHAPES.items()},
+                  "descent_beam_1": ((300, 1, 56, 1, 128), False),  # a hierarchy level's beam of 1
+                  "two_chunks": ((200, 4, 160, 90, 256), False),  # C = 640: two chunks of 512 candidates
+                  "unaligned_history": ((333, 2, 8, 30, 130), True)}  # rows 4 bytes off 16-byte boundaries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K8_EDGE_SHAPES))
+def test_k8_kernel_matches_twin_on_card(cuda_device, name):
+    """K8 against ``frontier_filter_ref`` on the card at each caller's
+    shape (``chip_smoke.K8_SHAPES``), a beam of one, a C of two chunks and
+    histories off the 16-byte boundary: every output equal, one launch."""
+    (q, e, r, l, t), shift = K8_EDGE_SHAPES[name]
+    nbrs, active, beam, history = (_t(x, cuda_device)
+                                   for x in chip_smoke.frontier_case(np.random.default_rng(8), q, e, r, l, t))
+    if shift:
+        buf = torch.empty(history.numel() + 1, dtype=torch.int32, device=cuda_device)
+        buf[1:] = history.flatten()
+        history = buf[1:].view(q, t)
+        assert history.data_ptr() % 16 and history.is_contiguous()
+    before = tfr.frontier_filter.launches
+    got = tfr.frontier_filter(nbrs, active, r, beam, history)
+    want = tfr.frontier_filter_ref(nbrs, active, r, beam, history)
+    torch.cuda.synchronize()
+    assert tfr.frontier_filter.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert 0 < int(got[0].sum()) < got[0].numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["int64_ids", "float_active", "c_not_e_times_r", "rows_differ", "beam_strided",
+                                  "history_on_cpu"])
+def test_k8_rejects_before_launch(cuda_device, what):
+    nbrs, active, beam, history = (_t(x, cuda_device)
+                                   for x in chip_smoke.frontier_case(np.random.default_rng(9), 16, 2, 8, 30, 128))
+    r = 8
+    if what == "int64_ids":
+        nbrs = nbrs.long()
+    elif what == "float_active":
+        active = active.float()
+    elif what == "c_not_e_times_r":
+        r = 7
+    elif what == "rows_differ":
+        beam = beam[:15]
+    elif what == "beam_strided":
+        beam = torch.cat([beam, beam], dim=1)[:, ::2]
+    else:
+        history = history.cpu()
+    before = tfr.frontier_filter.launches
+    with pytest.raises(ValueError):
+        tfr.frontier_filter(nbrs, active, r, beam, history)
+    assert tfr.frontier_filter.launches == before
+
+
+@pytest.mark.cuda
+def test_k8_once_a_beam_step_in_a_bq_search(cuda_device, monkeypatch):
+    """A BQ search on the card (beam 90, rerank 90, no repack: the
+    ``angular-bq-batch`` cell's serving) launches K8 once for each beam
+    step, as the wrapper's count, the ``beam.frontier_kernel`` counter and
+    the profiler's kernel events all read; its ids and scores are the
+    same bits as with the plain twin in K8's place."""
+    from jvector_tpu_torch import BinaryQuantization, GraphConfig, build_graph, tracing
+    from jvector_tpu_torch.graph import searcher
+
+    g = torch.Generator().manual_seed(19)
+    centers = torch.randn(32, 100, generator=g) * 4
+    data = centers[torch.randint(0, 32, (2048 + 512,), generator=g)] + torch.randn(2048 + 512, 100, generator=g)
+    data = torch.nn.functional.normalize(data, dim=1)
+    base, queries = data[:2048].to(cuda_device), data[2048:].to(cuda_device)
+    graph, exact = build_graph(base, "dot_product", GraphConfig(max_degree=32, ef_construction=100, wave_size=512),
+                               device=cuda_device)
+    bq = BinaryQuantization.compute(base)
+    first = bq.provider(bq.encode(base))
+
+    def run():
+        return searcher.search(graph, first, queries, top_k=10, beam_width=90, rerank_k=90, reranker=exact)
+
+    run().ids.cpu()  # warm
+    before = tfr.frontier_filter.launches
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        res = run()
+        torch.cuda.synchronize()
+    w = tracing.last_window()
+    steps = sum(s.name == "beam.step" for s in w.spans)
+    assert steps > 0
+    assert tfr.frontier_filter.launches - before == steps
+    assert w.counters["beam.frontier_kernel"] == steps
+    events = sum(e.count for e in prof.key_averages() if "frontier_kernel" in e.key and e.self_device_time_total > 0)
+    assert events == steps
+    def plain(*args):
+        return tfr.frontier_filter_ref(*args)
+
+    plain.launches = 0
+    monkeypatch.setattr(searcher, "frontier_filter", plain)
+    plain = run()
+    assert torch.equal(res.ids, plain.ids) and torch.equal(res.scores, plain.scores)
+    assert torch.equal(res.expanded_count, plain.expanded_count)

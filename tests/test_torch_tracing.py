@@ -10,7 +10,8 @@ the last request holds the search's host stamps: one ``search`` span, one
 the stop test, each under the ``search``.  On, the window holds the same
 spans, with each call's wave id, and the last request stays as it was;
 the profiler's ``jv:`` ranges lie inside the spans' stamps (one clock);
-the counters add up to the steps' widths and to ``expanded_count``; and
+the counters add up to the steps' widths and to ``expanded_count`` (and
+count no K8 launch: the CPU runs its twin); and
 the results are the same bits either way.
 """
 
@@ -177,9 +178,10 @@ def test_counters_add_up(index, kind, monkeypatch):
     assert c["beam.lane_slots"] == sum(widths)  # E = 1
     assert (kind == "sq4") == (min(widths) < Q)  # the tail's own width
     assert c["beam.pops"] == int(res.expanded_count.sum())
+    assert c["beam.frontier_kernel"] == 0  # the CPU runs K8's plain twin
     # running totals, one a device: a long profiled stretch holds no more
     totals = [v for t in tracing._rec.counters.values() for v in t.values()]
-    assert len(totals) == 2 and all(not isinstance(v, torch.Tensor) or v.dim() == 0 for v in totals)
+    assert len(totals) == 3 and all(not isinstance(v, torch.Tensor) or v.dim() == 0 for v in totals)
 
 
 def test_windows_follow_the_profiler(index):
