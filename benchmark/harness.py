@@ -27,6 +27,7 @@ import importlib.util
 import json
 import math
 import os
+import statistics
 import sys
 import time
 
@@ -130,6 +131,7 @@ class Record:
     memory_peak_bytes: int
     counters: dict = dataclasses.field(default_factory=dict)
     traces: dict = dataclasses.field(default_factory=dict)
+    waves: list = dataclasses.field(default_factory=list)  # (offset into the window, seconds) of each wave
 
 
 class RunContext:
@@ -191,6 +193,19 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & FORBIDDEN)
 
 
+def wave_line(waves: list) -> str:
+    """The window's wave times on one line: their count, p10, quartiles,
+    p90, and the slowest with its offset into the window (seconds)."""
+    if not waves:
+        return "waves (s): none"
+    times = [t for _, t in waves] * (1 if len(waves) > 1 else 2)  # quantiles need two points
+    deciles, quartiles = statistics.quantiles(times, n=10), statistics.quantiles(times, n=4)
+    offset, slowest = max(waves, key=lambda w: w[1])
+    end = waves[-1][0] + waves[-1][1]
+    return (f"waves (s): n {len(waves)}, p10 {deciles[0]:.6f}, q1 {quartiles[0]:.6f}, median {quartiles[1]:.6f}, "
+            f"q3 {quartiles[2]:.6f}, p90 {deciles[8]:.6f}, slowest {slowest:.6f} at {offset:.3f} of {end:.3f}")
+
+
 def _num(x):
     return x if isinstance(x, int) or math.isfinite(x) else None
 
@@ -206,6 +221,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: s
     ctx = RunContext(cell, seed, seconds, trace, dev, t0, control)
     rec = cell.kind_module().run(ctx)
     print(f"spans (s): {json.dumps(dict(ctx.spans.seconds))}", file=sys.stderr)
+    print(wave_line(rec.waves), file=sys.stderr)
     chk = judge.checks(rec.numbers, cell.config["checks"])
     metrics = {}
     if trace:

@@ -6,9 +6,11 @@ same on every seed), builds the index (``build_graph``), sets up its serve
 shape.  The seed orders the queries; the window then sends waves of
 ``wave`` queries, taken in turn from that order, one after another, each
 complete when its ids and scores are on the host, until ``--seconds``
-have passed; ``qps`` counts every query of every wave over the whole
-window.  A traced run profiles ``trace_waves`` waves after the first
-``trace_after_waves``.
+have passed and the last pass over the order is whole (where a wave is
+the whole query set, every wave ends a pass); ``qps`` counts every query
+of every wave over the whole window.  Each wave's host time goes into the
+record, for the harness's ``waves (s)`` line.  A traced run profiles
+``trace_waves`` waves after the first ``trace_after_waves``.
 
 After the window every answer row is held to the reference
 (``judge.answers``), once the index is freed.
@@ -55,8 +57,8 @@ def run(ctx) -> Record:
     rows, expanded, reranked = [], 0, 0
     first_traced = tr["trace_after_waves"] if ctx.tracer is not None else -1
     last_traced = first_traced + tr["trace_waves"] - 1 if ctx.tracer is not None else -1
-    waves = 0
-    start = time.perf_counter()
+    waves, wave_s = 0, []
+    start = tick = time.perf_counter()
     while True:
         if waves == first_traced:
             ctx.tracer.start("serve")
@@ -69,9 +71,12 @@ def run(ctx) -> Record:
         if waves == last_traced:
             ctx.tracer.stop(ctx.sync)
         waves += 1
-        if time.perf_counter() - start >= ctx.seconds and waves > last_traced:
+        now = time.perf_counter()
+        wave_s.append((tick - start, now - tick))
+        tick = now
+        if now - start >= ctx.seconds and waves > last_traced and waves % chunks == 0:
             break
-    window_s = time.perf_counter() - start
+    window_s = tick - start
     window_peak = ctx.peak()
     counters = {"queries": waves * w, "expanded": int(expanded), "reranked": int(reranked), "waves": waves}
     del serve, res
@@ -87,4 +92,4 @@ def run(ctx) -> Record:
         end_to_end={"qps": waves * w / window_s, "recall_at_10": numbers["recall"],
                     "device_peak_gib": window_peak / GIB, "setup_s": setup_s},
         numbers=numbers, attempted=waves * w, failed=numbers["bad_rows"], memory_peak_bytes=process_peak,
-        counters=counters, traces=traces)
+        counters=counters, traces=traces, waves=wave_s)
